@@ -1,0 +1,232 @@
+"""Host-side LIO entry point — port of ``lvislam_tpu.models.lio.pipeline``:
+projection + deskew -> LOAM features -> map optimization (-> loop closure)
+for one scan per call, on tensors of one device.
+
+The input contract is unchanged: ``pack_scan`` quantizes one scan, its IMU
+window and the misc flags into the same flat int16 buffer as the JAX
+package (3 mm position and 4 µs time quanta, bit-cast floats), and
+``lio_full_step`` unpacks it on the device. Profiler ranges (``lio.*``)
+name the step's stages in a ``torch.profiler`` trace and cost nothing
+measurable when no profiler runs. The JAX package's batched-upload
+transport (``upload_batch``, ``pipelined_uploads``, ``async_dispatch``) is
+not ported; those config fields are accepted and ignored.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+from torch.profiler import record_function
+
+from ...core.hostsync import host_bool
+from . import frontend, mapping
+
+_EXT_IDENTITY = (1.0, 0.0, 0.0, 0.0, 1.0, 0.0, 0.0, 0.0, 1.0)
+
+
+@dataclasses.dataclass
+class LioConfig:
+    """Field for field the JAX ``LioConfig``."""
+
+    n_scan: int = 4
+    horizon: int = 1800
+    point_capacity: int = 8192
+    imu_capacity: int = 64
+    ext_rot: tuple = _EXT_IDENTITY
+    ext_rpy: tuple = _EXT_IDENTITY
+    caps: mapping.LioCaps = dataclasses.field(default_factory=mapping.LioCaps)
+    params: mapping.LioParams = dataclasses.field(default_factory=mapping.LioParams)
+    min_range: float = 1.0
+    max_range: float = 100.0
+    edge_threshold: float = 1.0
+    surf_threshold: float = 0.1
+    odometry_surf_leaf: float = 0.4
+    loop_closure_enabled: bool = True
+    loop_every_n_scans: int = 10
+    exact_loam_selection: bool = False
+    # transport knobs of the JAX package's tunnel replay: accepted, ignored
+    upload_batch: int = 1
+    pipelined_uploads: bool = True
+    async_dispatch: bool = True
+
+
+POS_SCALE = 0.003  # m per quantum
+TIME_SCALE = 4e-6  # s per quantum
+
+
+def lio_full_step(state: mapping.LioMapState, packed: torch.Tensor, *,
+                  n_scan, horizon, min_range, max_range, edge_threshold,
+                  surf_threshold, surf_leaf, caps: mapping.LioCaps,
+                  params: mapping.LioParams, point_capacity: int,
+                  imu_capacity: int, exact_selection: bool = False):
+    """One LIS step on a packed int16 buffer (layout: ``pack_scan``)."""
+    P, M = point_capacity, imu_capacity
+    pts = packed[: P * 6].reshape(6, P)
+    imu = packed[P * 6: P * 6 + M * 8].view(torch.float32).reshape(M, 4)
+    misc = packed[P * 6 + M * 8:].view(torch.float32)
+    xyz = pts[0:3].to(torch.float32).T * POS_SCALE
+    intensity = pts[3].to(torch.float32)
+    ring_valid = pts[4].to(torch.int32)
+    ring = ring_valid % 256
+    rel_time = pts[5].to(torch.float32) * TIME_SCALE
+    point_valid = ring_valid >= 256
+
+    with record_function("lio.frontend"):
+        proj = frontend.project_scan(
+            xyz, intensity, ring, rel_time, point_valid,
+            imu[:, 0], imu[:, 1:4], misc[0].to(torch.int32), misc[1:4],
+            misc[4] > 0.5, n_scan=n_scan, horizon=horizon,
+            min_range=min_range, max_range=max_range,
+        )
+        feats = frontend.extract_features(
+            proj, edge_threshold=edge_threshold, surf_threshold=surf_threshold,
+            surf_leaf=surf_leaf, max_corner=caps.scan_corner,
+            max_surf=caps.scan_surf, exact_selection=exact_selection,
+        )
+    scan_info = dict(
+        stamp=misc[5],
+        imu_available=proj.imu_available,
+        imu_rpy_init=proj.imu_rpy_init,
+        odom_available=misc[6] > 0.5,
+        odom_trans=misc[7:10],
+        odom_quat=misc[10:14],
+        odom_reset_id=misc[14].to(torch.int32),
+        gps_available=misc[16] > 0.5,
+        gps_pos=misc[17:20],
+        gps_noise=misc[20:23],
+        gps_use_elevation=misc[23] > 0.5,
+    )
+    state, out = mapping.map_step(state, scan_info, feats, caps, params)
+    if host_bool((misc[15] > 0.5) & (state.kf_count > 1)):
+        with record_function("lio.loop_closure"):
+            state, _ = mapping.loop_closure_step(state, caps, params)
+    return state, out
+
+
+def ext_matrix(v) -> np.ndarray | None:
+    """Row-major 9-tuple -> (3,3) float64, or None when identity."""
+    R = np.asarray(v, np.float64).reshape(3, 3)
+    return None if np.allclose(R, np.eye(3)) else R
+
+
+def _rpy_to_matrix(rpy):
+    r, p, y = float(rpy[0]), float(rpy[1]), float(rpy[2])
+    cr, sr, cp, sp, cy, sy = np.cos(r), np.sin(r), np.cos(p), np.sin(p), np.cos(y), np.sin(y)
+    return np.array([
+        [cy * cp, cy * sp * sr - sy * cr, cy * sp * cr + sy * sr],
+        [sy * cp, sy * sp * sr + cy * cr, sy * sp * cr - cy * sr],
+        [-sp, cp * sr, cp * cr],
+    ])
+
+
+def _matrix_to_rpy(R):
+    return np.array([
+        np.arctan2(R[2, 1], R[2, 2]),
+        -np.arcsin(np.clip(R[2, 0], -1.0, 1.0)),
+        np.arctan2(R[1, 0], R[0, 0]),
+    ], np.float32)
+
+
+def rpy_to_lidar(rpy, ext_rpy) -> np.ndarray:
+    """Rotate a 9-axis attitude into the lidar frame (q_from * extQRPY)."""
+    R_ext = ext_matrix(ext_rpy)
+    if R_ext is None or rpy is None:
+        return rpy
+    return _matrix_to_rpy(_rpy_to_matrix(rpy) @ R_ext)
+
+
+def pack_scan(cfg: LioConfig, scan: dict, imu_rel_time: np.ndarray,
+              imu_gyro: np.ndarray, imu_rpy_init: np.ndarray | None,
+              odom: dict | None = None, gps: dict | None = None,
+              do_loop: bool = False) -> np.ndarray:
+    """Quantize one scan + its IMU window + misc flags into the flat int16
+    buffer ``lio_full_step`` unpacks — byte-identical to the JAX package's
+    ``pack_scan``."""
+    P, M = cfg.point_capacity, cfg.imu_capacity
+    R_ext = ext_matrix(cfg.ext_rot)
+    if R_ext is not None and len(imu_gyro):
+        imu_gyro = np.asarray(imu_gyro) @ R_ext.T
+    imu_rpy_init = rpy_to_lidar(imu_rpy_init, cfg.ext_rpy)
+    buf = np.zeros(P * 6 + M * 8 + 48, np.int16)
+    pts = buf[: P * 6].reshape(6, P)
+    n = min(len(scan["xyz"]), P)
+    np.clip(np.round(np.asarray(scan["xyz"][:n]).T / POS_SCALE), -32767,
+            32767, out=pts[0:3, :n], casting="unsafe")
+    np.clip(np.round(scan["intensity"][:n]), -32767, 32767,
+            out=pts[3, :n], casting="unsafe")
+    pts[4, :n] = np.asarray(scan["ring"][:n], np.int16) + 256
+    np.clip(np.round(scan["time"][:n] / TIME_SCALE), 0, 32767,
+            out=pts[5, :n], casting="unsafe")
+    imu = buf[P * 6: P * 6 + M * 8].view(np.float32).reshape(M, 4)
+    icount = min(len(imu_rel_time), M)
+    imu[:icount, 0] = imu_rel_time[:icount]
+    imu[:icount, 1:4] = imu_gyro[:icount]
+    if 0 < icount < M:
+        imu[icount:, 0] = imu_rel_time[icount - 1]
+        imu[icount:, 1:4] = imu_gyro[icount - 1]
+    misc = buf[P * 6 + M * 8:].view(np.float32)
+    misc[0] = icount
+    misc[1:4] = imu_rpy_init if imu_rpy_init is not None else 0.0
+    misc[4] = float(imu_rpy_init is not None and icount > 1)
+    misc[5] = scan["stamp"]
+    misc[6] = float(odom is not None)
+    misc[7:10] = odom["trans"] if odom else 0.0
+    misc[10:14] = odom["quat"] if odom else (1.0, 0, 0, 0)
+    misc[14] = odom["reset_id"] if odom else 0
+    misc[15] = float(do_loop)
+    misc[16] = float(gps is not None)
+    misc[17:20] = gps["pos"] if gps else 0.0
+    misc[20:23] = gps["noise"] if gps else 0.0
+    misc[23] = float(gps.get("use_elevation", False)) if gps else 0.0
+    return buf
+
+
+class LioPipeline:
+    """Per-scan LIO processing with device-resident state on `device`."""
+
+    def __init__(self, cfg: LioConfig, device=None, state: mapping.LioMapState | None = None):
+        self.cfg = cfg
+        self.device = torch.device(device) if device is not None else torch.device("cpu")
+        self.state = state if state is not None else mapping.lio_init(cfg.caps, self.device)
+        self.trajectory = []  # (stamp, x6 tensor on the device)
+        self.scan_counter = 0
+        self._kw = dict(
+            n_scan=cfg.n_scan, horizon=cfg.horizon,
+            min_range=cfg.min_range, max_range=cfg.max_range,
+            edge_threshold=cfg.edge_threshold, surf_threshold=cfg.surf_threshold,
+            surf_leaf=cfg.odometry_surf_leaf, caps=cfg.caps, params=cfg.params,
+            point_capacity=cfg.point_capacity, imu_capacity=cfg.imu_capacity,
+            exact_selection=cfg.exact_loam_selection,
+        )
+
+    def process_scan(self, scan: dict, imu_rel_time: np.ndarray,
+                     imu_gyro: np.ndarray, imu_rpy_init: np.ndarray | None,
+                     odom: dict | None = None, gps: dict | None = None):
+        """scan: dict(xyz, intensity, ring, time, stamp); imu_*: samples
+        covering the scan, times relative to scan start; odom: optional VINS
+        guess (trans, quat, reset_id); gps: optional map-frame fix (pos,
+        noise, use_elevation). Returns the step's MapOutputs (device
+        tensors)."""
+        cfg = self.cfg
+        self.scan_counter += 1
+        do_loop = (cfg.loop_closure_enabled
+                   and self.scan_counter % cfg.loop_every_n_scans == 0)
+        buf = pack_scan(cfg, scan, imu_rel_time, imu_gyro, imu_rpy_init,
+                        odom=odom, gps=gps, do_loop=do_loop)
+        packed = torch.from_numpy(buf).to(self.device, non_blocking=False)
+        self.state, out = lio_full_step(self.state, packed, **self._kw)
+        self.trajectory.append((scan["stamp"], out.x6))
+        return out
+
+    def flush(self):
+        """Every step has been issued already (no staged uploads); kept for
+        API parity with the JAX pipeline."""
+
+    def trajectory_array(self) -> np.ndarray:
+        """Sync point: the logged poses as (N, 6) float32 numpy."""
+        self.flush()
+        if not self.trajectory:
+            return np.zeros((0, 6), np.float32)
+        return torch.stack([x6 for _, x6 in self.trajectory]).cpu().numpy()

@@ -1,0 +1,71 @@
+"""Carry state across from the JAX package.
+
+Turns a JAX ``LioMapState`` (any NamedTuple tree whose leaves go through
+``np.asarray``), ``LioCaps``, ``LioParams`` and ``LioConfig`` into the
+port's objects on a given device, so both implementations can start from
+one state. Works on the objects' field names only; imports nothing of JAX.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from ..models.lio import mapping, pipeline
+from ..ops import posegraph as pg
+from ..ops import voxel_hash as vh
+
+_NESTED = {"graph": pg.PoseGraph, "corner_hash": vh.VoxelHash,
+           "surf_hash": vh.VoxelHash}
+
+
+def _tensor(x, device) -> torch.Tensor:
+    return torch.from_numpy(np.array(np.asarray(x), copy=True)).to(device)
+
+
+def _tree(cls, src, device):
+    fields = {}
+    for name in cls._fields:
+        v = getattr(src, name)
+        sub = _NESTED.get(name)
+        fields[name] = _tree(sub, v, device) if sub else _tensor(v, device)
+    return cls(**fields)
+
+
+def state_from_jax(jstate, device=None) -> mapping.LioMapState:
+    """A JAX ``LioMapState`` -> the port's ``LioMapState`` on `device`."""
+    return _tree(mapping.LioMapState, jstate, device)
+
+
+def to_numpy(tree) -> dict:
+    """Flatten a port NamedTuple tree to {"a.b": numpy array}."""
+    out = {}
+    for name in tree._fields:
+        v = getattr(tree, name)
+        if hasattr(v, "_fields"):
+            out.update({f"{name}.{k}": a for k, a in to_numpy(v).items()})
+        else:
+            out[name] = v.detach().cpu().numpy()
+    return out
+
+
+def _dc(cls, src, **override):
+    names = {f.name for f in dataclasses.fields(cls)}
+    kw = {n: getattr(src, n) for n in names if hasattr(src, n)}
+    kw.update(override)
+    return cls(**kw)
+
+
+def caps_from_jax(jcaps) -> mapping.LioCaps:
+    return _dc(mapping.LioCaps, jcaps)
+
+
+def params_from_jax(jparams) -> mapping.LioParams:
+    return _dc(mapping.LioParams, jparams)
+
+
+def config_from_jax(jcfg) -> pipeline.LioConfig:
+    return _dc(pipeline.LioConfig, jcfg, caps=caps_from_jax(jcfg.caps),
+               params=params_from_jax(jcfg.params))

@@ -1,0 +1,239 @@
+"""Synthetic lidar world — a numpy copy of the lidar half of
+``lvislam_tpu.utils.synthetic``: the room world, batch raycasting, smooth
+analytic trajectories with an ideal IMU, and one spinning multi-beam lidar
+sweep with real motion skew.
+
+The copy exists so the port can make the bench's scans where JAX is not
+installed; the tests hold it to the JAX package's module bit for bit.
+Everything is host-side NumPy float64.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable
+
+import numpy as np
+from scipy.spatial.transform import Rotation as Rsc
+
+GRAVITY = 9.81
+
+
+# ---------------------------------------------------------------------------
+# World geometry
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class World:
+    # planes: point p0, normal n (unit), half-extents (a_len, b_len) along
+    # in-plane axes a, b
+    plane_p0: np.ndarray  # (P, 3)
+    plane_n: np.ndarray  # (P, 3)
+    plane_a: np.ndarray  # (P, 3)
+    plane_b: np.ndarray  # (P, 3)
+    plane_ext: np.ndarray  # (P, 2)
+    # vertical cylinders: center (cx, cy), radius, z range
+    cyl_c: np.ndarray  # (C, 2)
+    cyl_r: np.ndarray  # (C,)
+    cyl_z: np.ndarray  # (C, 2)
+
+
+def default_world(seed: int = 0, size: float = 14.0) -> World:
+    """A room: floor + ceiling + 4 walls + interior boxes + poles."""
+    rng = np.random.default_rng(seed)
+    planes = []
+
+    def add_plane(p0, n, a, b, ea, eb):
+        planes.append((np.array(p0, float), np.array(n, float) / np.linalg.norm(n),
+                       np.array(a, float), np.array(b, float), np.array([ea, eb], float)))
+
+    s = size
+    add_plane([0, 0, -1.6], [0, 0, 1], [1, 0, 0], [0, 1, 0], s, s)  # floor
+    add_plane([0, 0, 2.6], [0, 0, -1], [1, 0, 0], [0, 1, 0], s, s)  # ceiling
+    add_plane([s, 0, 0.5], [-1, 0, 0], [0, 1, 0], [0, 0, 1], s, 2.2)
+    add_plane([-s, 0, 0.5], [1, 0, 0], [0, 1, 0], [0, 0, 1], s, 2.2)
+    add_plane([0, s, 0.5], [0, -1, 0], [1, 0, 0], [0, 0, 1], s, 2.2)
+    add_plane([0, -s, 0.5], [0, 1, 0], [1, 0, 0], [0, 0, 1], s, 2.2)
+    # interior boxes (two faces each, avoid center where trajectory lives)
+    for _ in range(6):
+        cx, cy = rng.uniform(-s * 0.7, s * 0.7, 2)
+        if np.hypot(cx, cy) < 5.0:
+            cx += np.sign(cx or 1.0) * 5.0
+        w = rng.uniform(0.8, 2.0)
+        add_plane([cx + w, cy, 0.0], [1, 0, 0], [0, 1, 0], [0, 0, 1], w, 1.5)
+        add_plane([cx, cy + w, 0.0], [0, 1, 0], [1, 0, 0], [0, 0, 1], w, 1.5)
+
+    cyl_c, cyl_r, cyl_z = [], [], []
+    for _ in range(10):
+        c = rng.uniform(-s * 0.8, s * 0.8, 2)
+        if np.hypot(*c) < 4.0:
+            c = c + np.sign(c) * 4.0
+        cyl_c.append(c)
+        cyl_r.append(rng.uniform(0.06, 0.15))
+        cyl_z.append([-1.6, 2.6])
+
+    return World(
+        plane_p0=np.stack([p[0] for p in planes]),
+        plane_n=np.stack([p[1] for p in planes]),
+        plane_a=np.stack([p[2] for p in planes]),
+        plane_b=np.stack([p[3] for p in planes]),
+        plane_ext=np.stack([p[4] for p in planes]),
+        cyl_c=np.array(cyl_c),
+        cyl_r=np.array(cyl_r),
+        cyl_z=np.array(cyl_z),
+    )
+
+
+def raycast(world: World, origins: np.ndarray, dirs: np.ndarray, max_range: float = 100.0):
+    """Batch ray-world intersection. origins/dirs (N, 3). Returns ranges (N,)
+    (inf = miss)."""
+    N = origins.shape[0]
+    best = np.full(N, np.inf)
+
+    # planes
+    for i in range(world.plane_p0.shape[0]):
+        n = world.plane_n[i]
+        denom = dirs @ n
+        tnum = (world.plane_p0[i] - origins) @ n
+        with np.errstate(divide="ignore", invalid="ignore"):
+            t = tnum / denom
+        hit = (t > 0.05) & (t < max_range) & (np.abs(denom) > 1e-9)
+        pts = origins + t[:, None] * dirs
+        rel = pts - world.plane_p0[i]
+        ua = rel @ world.plane_a[i]
+        ub = rel @ world.plane_b[i]
+        hit &= (np.abs(ua) <= world.plane_ext[i, 0]) & (np.abs(ub) <= world.plane_ext[i, 1])
+        best = np.where(hit & (t < best), t, best)
+
+    # vertical cylinders: solve |o_xy + t d_xy - c|^2 = r^2
+    for i in range(world.cyl_c.shape[0]):
+        oc = origins[:, :2] - world.cyl_c[i]
+        d2 = dirs[:, :2]
+        a = np.sum(d2 * d2, axis=1)
+        b = 2 * np.sum(oc * d2, axis=1)
+        c = np.sum(oc * oc, axis=1) - world.cyl_r[i] ** 2
+        disc = b * b - 4 * a * c
+        with np.errstate(invalid="ignore", divide="ignore"):
+            t = (-b - np.sqrt(np.maximum(disc, 0))) / (2 * a)
+        z = origins[:, 2] + t * dirs[:, 2]
+        hit = (disc > 0) & (a > 1e-12) & (t > 0.05) & (t < max_range)
+        hit &= (z >= world.cyl_z[i, 0]) & (z <= world.cyl_z[i, 1])
+        best = np.where(hit & (t < best), t, best)
+
+    return best
+
+
+# ---------------------------------------------------------------------------
+# Trajectory
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class Trajectory:
+    """Smooth analytic SE(3) trajectory p(t), R(t) with derivatives."""
+
+    pos_fn: Callable[[np.ndarray], np.ndarray]  # (T,) -> (T, 3)
+    rpy_fn: Callable[[np.ndarray], np.ndarray]  # (T,) -> (T, 3) roll,pitch,yaw rad
+
+    def pose(self, t):
+        t = np.atleast_1d(np.asarray(t, float))
+        p = self.pos_fn(t)
+        rpy = self.rpy_fn(t)
+        R = Rsc.from_euler("ZYX", rpy[:, ::-1]).as_matrix()  # Rz(y)Ry(p)Rx(r)
+        return p, R
+
+    def imu(self, t, dt=1e-4):
+        """Ideal IMU: body angular velocity + specific force at times t."""
+        t = np.asarray(t, float)
+        p0, R0 = self.pose(t)
+        # angular velocity via central difference of rotations
+        _, Rp = self.pose(t + dt)
+        _, Rm = self.pose(t - dt)
+        dR = np.einsum("nij,nik->njk", Rm, Rp)  # Rm^T Rp  ≈ exp(2 dt ω_body)
+        w_body = Rsc.from_matrix(dR).as_rotvec() / (2 * dt)
+        # linear acceleration via central difference
+        pp, _ = self.pose(t + dt)
+        pm, _ = self.pose(t - dt)
+        a_world = (pp - 2 * p0 + pm) / dt**2
+        g_world = np.array([0.0, 0.0, -GRAVITY])
+        f_body = np.einsum("nij,ni->nj", R0, a_world - g_world)  # R^T (a - g)
+        return w_body, f_body
+
+
+def figure8_trajectory(scale: float = 4.0, period: float = 40.0, z_amp: float = 0.15) -> Trajectory:
+    w = 2 * np.pi / period
+
+    def pos(t):
+        return np.stack(
+            [scale * np.sin(w * t), scale * np.sin(2 * w * t) / 1.5, z_amp * np.sin(3 * w * t)],
+            axis=-1,
+        )
+
+    def rpy(t):
+        # yaw follows the velocity direction; gentle roll/pitch oscillation
+        vx = scale * w * np.cos(w * t)
+        vy = scale * 2 * w * np.cos(2 * w * t) / 1.5
+        yaw = np.unwrap(np.arctan2(vy, vx))
+        return np.stack(
+            [0.05 * np.sin(2 * w * t), 0.05 * np.cos(3 * w * t), yaw], axis=-1
+        )
+
+    return Trajectory(pos_fn=pos, rpy_fn=rpy)
+
+
+def simulate_lidar_scan(
+    world: World,
+    traj: Trajectory,
+    t_start: float,
+    n_scan: int = 4,
+    horizon: int = 1800,
+    sweep_time: float = 0.1,
+    max_range: float = 100.0,
+    range_noise: float = 0.0,
+    seed: int = 0,
+):
+    """One sweep of a spinning n_scan-beam lidar. Each azimuth step fires all
+    beams from the sensor pose at its own time — skew is real. Returns dict
+    with xyz (in the scan-start sensor frame of each point's TRUE pose — i.e.
+    raw, skewed measurements in the *sensor frame at measurement time*,
+    expressed as the lidar reports them), ring, time, plus ground truth pose
+    at scan start."""
+    rng = np.random.default_rng(seed + int(t_start * 1000) % 100000)
+    elev = np.deg2rad(np.linspace(-12, 12, n_scan))
+    az = np.linspace(0, 2 * np.pi, horizon, endpoint=False)
+    times = t_start + sweep_time * (np.arange(horizon) / horizon)
+
+    p_t, R_t = traj.pose(times)  # (H, 3), (H, 3, 3)
+
+    rings = []
+    for r, el in enumerate(elev):
+        d_body = np.stack(
+            [np.cos(el) * np.cos(az), np.cos(el) * np.sin(az), np.full_like(az, np.sin(el))],
+            axis=-1,
+        )  # (H, 3)
+        d_world = np.einsum("nij,nj->ni", R_t, d_body)
+        rngs = raycast(world, p_t, d_world, max_range)
+        if range_noise > 0:
+            rngs = rngs + range_noise * rng.standard_normal(rngs.shape)
+        hit = np.isfinite(rngs)
+        # measured point in sensor frame at measurement time
+        xyz_meas = d_body * rngs[:, None]
+        rings.append(
+            dict(xyz=xyz_meas[hit], time=times[hit] - t_start,
+                 ring=np.full(hit.sum(), r, np.int32))
+        )
+
+    xyz = np.concatenate([r["xyz"] for r in rings])
+    time = np.concatenate([r["time"] for r in rings])
+    ring = np.concatenate([r["ring"] for r in rings])
+    # interleave by time (Livox-style time-ordered stream)
+    order = np.argsort(time, kind="stable")
+    p0, R0 = traj.pose(np.array([t_start]))
+    return dict(
+        stamp=t_start,
+        xyz=xyz[order].astype(np.float32),
+        time=time[order].astype(np.float32),
+        ring=ring[order],
+        intensity=np.ones(len(order), np.float32),
+        true_pos=p0[0],
+        true_R=R0[0],
+    )
