@@ -18,13 +18,29 @@ Phases, one line each:
    clean-CPU anchor in ``bench_anchors.json``, steady per-scan ms, host
    syncs per scan, keyframes, kernel launch counts.
 4. determinism: a second replay must reproduce the trajectory bit for bit.
+5. CLAHE kernels K3 (tile_hist) and K4 (apply_cdf) from
+   ``lvislam_tpu_torch/csrc/clahe.cu`` against their plain versions on a
+   rendered MEI 576x1024 frame and on a uniform-random image, with
+   CUDA-event timings of both.
+6. tracker: 20 MEI 1024x576 frames of the LIO replay's world and trajectory
+   (t = 0.1 + i/10 s) through ``FeatureTracker`` at ``TrackerParams()``
+   defaults with K3 and K4 on. Gates: each kernel launched once a frame;
+   per-frame tracked counts and the median epipolar residual under the
+   ground-truth relative pose against the JAX CPU run's values stored in
+   ``lvislam_tpu_torch/utils/anchors.py``; a second run bit-identical.
+   Reports steady per-frame ms and host syncs per frame.
+7. depth: ``register_depth`` of the last 5 frames' features against a
+   12 x 4096-point world cloud from the LIO replay's scans; the share of
+   features given a depth and the median error against a raycast, gated
+   against the JAX run's values.
 
 Then one JSON line of kernel records, and last the result line
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero.
 There is no CPU path: without a GPU the script fails.
 
-``python3 chip_smoke.py --profile N`` adds a torch.profiler trace of N
-steady scans (device busy share, device time by kernel) before the result.
+``python3 chip_smoke.py --profile N`` adds torch.profiler traces of N
+steady scans and N steady tracker frames (device busy share, device time
+by kernel) before the result.
 """
 
 from __future__ import annotations
@@ -42,6 +58,13 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 
 ATE_LIMIT_PCT = 5.0  # BASELINE criterion: not more than 5% worse than the anchor
 N_SCANS, N_WARM, RATE = 91, 11, 10.0
+# the tracker sequence: 20 frames at 10 Hz from t = 0.1 s (bench.py's
+# camera timing); depth for the last 5 frames against scans 8..19
+N_FRAMES, DEPTH_FRAMES = 20, 5
+CLOUD_SCANS, CLOUD_PER_SCAN = range(8, 20), 4096
+FOCAL_VIRTUAL = 460.0  # the tracker's rejectWithF focal length
+DEPTH_SHARE_TOL = 0.10  # absolute, on the share of features given a depth
+DEPTH_ERR_FACTOR, DEPTH_ERR_SLACK_M = 1.5, 0.02  # median error <= 1.5 x JAX + 2 cm
 
 
 def log(phase: str, **kw):
@@ -264,6 +287,220 @@ def profile_steady(cfg, scans, dev, n_prof: int):
             device_ms_per_scan=round(us / n_prof / 1e3, 4))
 
 
+def tracker_frames():
+    """The MEI 1024x576 rig's frames of the LIO replay's world and
+    trajectory at t = 0.1 + i/10, quantized to 8 bits and back as the
+    system's frame packer does (`frame_step.py:72,139`). Returns (camera,
+    world, trajectory, stamps, frames as (H, W) float32 arrays)."""
+    import numpy as np
+
+    from lvislam_tpu_torch.core.config import CameraIntrinsics
+    from lvislam_tpu_torch.utils import synthetic as syn
+
+    cam = CameraIntrinsics()
+    world = syn.default_world(seed=0)
+    traj = syn.figure8_trajectory(scale=3.0, period=40.0)
+    ts = [0.1 + i / RATE for i in range(N_FRAMES)]
+    frames = []
+    for t in ts:
+        img = syn.render_camera_image(world, traj, t, cam=cam)
+        u8 = np.clip(np.round(img * 255.0), 0, 255).astype(np.uint8)
+        frames.append(u8.astype(np.float32) * np.float32(1.0 / 255.0))
+    return cam, world, traj, ts, frames
+
+
+def depth_cloud(scans, traj):
+    """The fused system's depth ring: 4096 evenly strided points of each
+    of 12 lidar scans (dicts of `simulate_lidar_scan`), each point moved to
+    the world frame at the ground-truth pose of its own measurement time.
+    Returns (12*4096, 3) float32."""
+    import numpy as np
+
+    pts = []
+    for s in scans:
+        sel = np.linspace(0, s["xyz"].shape[0] - 1, CLOUD_PER_SCAN).astype(np.int64)
+        p, R = traj.pose(s["stamp"] + s["time"][sel].astype(np.float64))
+        pts.append(p + np.einsum("nij,nj->ni", R, s["xyz"][sel].astype(np.float64)))
+    return np.concatenate(pts).astype(np.float32)
+
+
+def body_pose(traj, t):
+    """(trans (3,), quat [w, x, y, z] (4,)) float32 of the body in the world."""
+    import numpy as np
+    from scipy.spatial.transform import Rotation as Rsc
+
+    p, R = traj.pose(np.array([t]))
+    x, y, z, w = Rsc.from_matrix(R[0]).as_quat()
+    return p[0].astype(np.float32), np.array([w, x, y, z], np.float32)
+
+
+def epipolar_median_px(outs, ts, traj) -> float:
+    """Median distance (virtual-focal pixels) of each consecutive-frame
+    track's current normalized point from the epipolar line of its previous
+    one under the ground-truth relative camera pose. `outs`: per frame
+    dicts with `norm` (N, 2) and `valid` (N,); a valid slot is tracked from
+    the previous frame in the same slot."""
+    import numpy as np
+
+    from lvislam_tpu_torch.utils.synthetic import R_CAM_BODY
+
+    res = []
+    for k in range(1, len(outs)):
+        v = outs[k]["valid"]
+        if not v.any():
+            continue
+        (p1,), (R1,) = traj.pose(np.array([ts[k - 1]]))
+        (p2,), (R2,) = traj.pose(np.array([ts[k]]))
+        Rc1, Rc2 = R1 @ R_CAM_BODY, R2 @ R_CAM_BODY
+        R = Rc2.T @ Rc1  # X_c2 = R X_c1 + t
+        t = Rc2.T @ (p1 - p2)
+        E = np.array([[0, -t[2], t[1]], [t[2], 0, -t[0]], [-t[1], t[0], 0]]) @ R
+        n1 = np.c_[outs[k - 1]["norm"][v].astype(np.float64), np.ones(v.sum())]
+        n2 = np.c_[outs[k]["norm"][v].astype(np.float64), np.ones(v.sum())]
+        line = n1 @ E.T
+        res.append(np.abs(np.sum(n2 * line, axis=1)) / np.hypot(line[:, 0], line[:, 1]))
+    return float(np.median(np.concatenate(res)) * FOCAL_VIRTUAL)
+
+
+def depth_metrics(outs, depths, ts, world, traj):
+    """(share of valid features given a depth, median |depth - raycast
+    depth| in m) over frames; `depths` per frame (N,), -1 = none."""
+    import numpy as np
+
+    from lvislam_tpu_torch.utils import synthetic as syn
+
+    n_valid, errs = 0, []
+    for out, d, t in zip(outs, depths, ts):
+        v = out["valid"]
+        n_valid += int(v.sum())
+        got = v & (d > 0)
+        (p,), (R,) = traj.pose(np.array([t]))
+        ray = np.c_[out["norm"][got].astype(np.float64), np.ones(got.sum())]
+        scale = np.linalg.norm(ray, axis=1)
+        dirs = (ray / scale[:, None]) @ (R @ syn.R_CAM_BODY).T
+        rng = syn.raycast(world, np.broadcast_to(p, dirs.shape), dirs)
+        errs.append(np.abs(d[got] - rng / scale))
+    errs = np.concatenate(errs)
+    return len(errs) / max(n_valid, 1), float(np.median(errs))
+
+
+def check_clahe_kernels(frame, dev):
+    """K3 and K4 against their plain versions on a rendered frame and a
+    uniform-random image at the rig's 576x1024."""
+    import numpy as np
+    import torch
+
+    from lvislam_tpu_torch.ops import clahe
+    from lvislam_tpu_torch.ops import image as imops
+
+    rng = np.random.default_rng(0)
+    imgs = {"rendered": torch.as_tensor(frame, device=dev),
+            "uniform": torch.as_tensor(rng.random(frame.shape, dtype=np.float32), device=dev)}
+    res = {}
+    for name, img in imgs.items():
+        H, W = img.shape
+        h1 = clahe.tile_hist(img)
+        h0 = clahe.tile_hist_plain(img)
+        cdf = imops.clip_cdf(h0, (H // 8) * (W // 8))
+        o1 = clahe.apply_cdf(img, cdf)
+        o0 = clahe.apply_cdf_plain(img, cdf)
+        torch.cuda.synchronize()
+        if not torch.equal(h1, h0):
+            raise AssertionError(f"K3 {name}: counts differ in "
+                                 f"{int((h1 != h0).sum())} of {h1.numel()} bins")
+        if int(h1.sum()) != (H // 8) * (W // 8) * 64:
+            raise AssertionError(f"K3 {name}: {int(h1.sum())} pixels counted")
+        e3 = float((h1 - h0).abs().max())
+        e4 = float((o1 - o0).abs().max())
+        if not e4 <= 1e-6:
+            raise AssertionError(f"K4 {name}: max abs err {e4} > 1e-6")
+        t = {"K3": cuda_ms(lambda: clahe.tile_hist(img)),
+             "K3_plain": cuda_ms(lambda: clahe.tile_hist_plain(img)),
+             "K4": cuda_ms(lambda: clahe.apply_cdf(img, cdf)),
+             "K4_plain": cuda_ms(lambda: clahe.apply_cdf_plain(img, cdf))}
+        log("parity", kernels="K3,K4", image=f"{name}:{H}x{W}", K3_counts="identical",
+            K4_max_abs_err=e4, **{f"{k}_ms": round(v, 4) for k, v in t.items()})
+        res[name] = (e3, e4, t)
+    return res
+
+
+def track_sequence(frames, ts, cam, dev):
+    """One pass of the frames through FeatureTracker; returns (per-frame
+    output dicts as numpy, per-frame seconds, host syncs per frame)."""
+    import torch
+
+    from lvislam_tpu_torch.core import hostsync
+    from lvislam_tpu_torch.models.vio.feature_tracker import FeatureTracker
+
+    tracker = FeatureTracker(cam=cam)
+    state = tracker.init_state(dev)
+    imgs = [torch.as_tensor(f, device=dev) for f in frames]
+    torch.cuda.synchronize()
+    outs, times, syncs = [], [], []
+    for img, t in zip(imgs, ts):
+        hostsync.reset()
+        t0 = time.perf_counter()
+        state, out = tracker(state, img, t)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        syncs.append(hostsync.COUNT)
+        outs.append({k: getattr(out, k).cpu().numpy()
+                     for k in ("ids", "uv", "norm", "valid", "n_tracked")})
+    return outs, times, syncs
+
+
+def register_last_frames(outs, ts, cloud, traj, dev):
+    """register_depth of the last DEPTH_FRAMES frames' features; returns
+    (per-frame depths as numpy, ms per call)."""
+    import torch
+
+    from lvislam_tpu_torch.models.vio.feature_tracker import register_depth
+
+    cw = torch.as_tensor(cloud, device=dev)
+    cv = torch.ones(cw.shape[0], dtype=torch.bool, device=dev)
+    depths, calls = [], []
+    for out, t in zip(outs[-DEPTH_FRAMES:], ts[-DEPTH_FRAMES:]):
+        p, q = (torch.as_tensor(a, device=dev) for a in body_pose(traj, t))
+        norm = torch.as_tensor(out["norm"], device=dev)
+        valid = torch.as_tensor(out["valid"], device=dev)
+        calls.append(lambda norm=norm, valid=valid, p=p, q=q:
+                     register_depth(norm, valid, cw, cv, p, q))
+        depths.append(calls[-1]().cpu().numpy())
+    return depths, cuda_ms(calls[-1], reps=20)
+
+
+def profile_tracker(frames, ts, cam, dev, n_prof: int):
+    """torch.profiler over `n_prof` steady tracker frames: device busy share
+    and the largest device kernels."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from lvislam_tpu_torch.models.vio.feature_tracker import FeatureTracker
+
+    tracker = FeatureTracker(cam=cam)
+    state = tracker.init_state(dev)
+    imgs = [torch.as_tensor(f, device=dev) for f in frames]
+    for img, t in zip(imgs[:2], ts[:2]):
+        state, _ = tracker(state, img, t)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for img, t in zip(imgs[2:2 + n_prof], ts[2:2 + n_prof]):
+            state, _ = tracker(state, img, t)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    rows = [(e.key, e.self_device_time_total, e.count) for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
+    busy = sum(r[1] for r in rows)
+    log("profile", tracker_frames=n_prof, wall_ms_per_frame=round(wall_us / n_prof / 1e3, 3),
+        device_ms_per_frame=round(busy / n_prof / 1e3, 3),
+        device_busy_share=round(busy / wall_us, 4),
+        device_ops_per_frame=round(sum(r[2] for r in rows) / n_prof, 1))
+    for key, us, cnt in sorted(rows, key=lambda r: -r[1])[:10]:
+        print(f"  {us / n_prof / 1e3:8.4f} ms/frame  {cnt / n_prof:7.1f}/frame  {key[:90]}",
+              flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -342,8 +579,73 @@ def main() -> int:
         raise AssertionError("determinism: second replay differs "
                              f"(max {np.abs(traj1 - traj2).max():.3e})")
     log("determinism", identical=True)
-    if "--profile" in sys.argv:
-        profile_steady(cfg, scans, dev, int(sys.argv[sys.argv.index("--profile") + 1]))
+    n_prof = int(sys.argv[sys.argv.index("--profile") + 1]) if "--profile" in sys.argv else 0
+    if n_prof:
+        profile_steady(cfg, scans, dev, n_prof)
+
+    # ---- 5. CLAHE kernels at the rig's shape ----
+    from lvislam_tpu_torch.ops import clahe
+    from lvislam_tpu_torch.utils.anchors import TRACKER_SEQUENCE as ref
+
+    t0 = time.perf_counter()
+    cam, world, traj, ts, frames = tracker_frames()
+    log("frames", n=len(frames), shape=f"{frames[0].shape[0]}x{frames[0].shape[1]}",
+        model=cam.model_type, gen_seconds=round(time.perf_counter() - t0, 1))
+    k34 = check_clahe_kernels(frames[0], dev)
+
+    # ---- 6. the tracker sequence through FeatureTracker ----
+    clahe.HIST_LAUNCHES = 0
+    clahe.APPLY_LAUNCHES = 0
+    outs, ftimes, fsyncs = track_sequence(frames, ts, cam, dev)
+    launches["K3"], launches["K4"] = clahe.HIST_LAUNCHES, clahe.APPLY_LAUNCHES
+    if launches["K3"] != N_FRAMES or launches["K4"] != N_FRAMES:
+        raise AssertionError(f"tracker: K3/K4 launched {launches['K3']}/{launches['K4']} "
+                             f"times in {N_FRAMES} frames")
+    n_tr = [int(o["n_tracked"]) for o in outs]
+    for o in outs:
+        live = o["ids"] >= 0
+        if not (np.isfinite(o["uv"][live]).all() and np.isfinite(o["norm"][live]).all()):
+            raise AssertionError("tracker: non-finite feature coordinates")
+    bad = [k for k in range(1, N_FRAMES)
+           if abs(n_tr[k] - ref["n_tracked"][k]) > max(5, 0.05 * ref["n_tracked"][k])]
+    if bad:
+        raise AssertionError(f"tracker: n_tracked {n_tr} vs JAX {ref['n_tracked']} "
+                             f"beyond max(5, 5%) on frames {bad}")
+    epi = epipolar_median_px(outs, ts, traj)
+    steady = np.asarray(ftimes[2:]) * 1e3
+    log("tracker", frames=N_FRAMES, n_tracked=",".join(map(str, n_tr)),
+        jax_n_tracked=",".join(map(str, ref["n_tracked"])),
+        epipolar_median_px=round(epi, 4), jax_epipolar_median_px=ref["epipolar_median_px"],
+        steady_ms_mean=round(float(steady.mean()), 2),
+        steady_ms_p50=round(float(np.median(steady)), 2),
+        first_frame_ms=round(ftimes[0] * 1e3, 1),
+        host_syncs_per_frame=round(float(np.mean(fsyncs)), 2),
+        launches_K3=launches["K3"], launches_K4=launches["K4"])
+    if epi > 2.0 * ref["epipolar_median_px"]:
+        raise AssertionError(f"tracker: epipolar median {epi:.4f} px is over twice "
+                             f"the JAX run's {ref['epipolar_median_px']} px")
+    outs2, _, _ = track_sequence(frames, ts, cam, dev)
+    for k, (a, b) in enumerate(zip(outs, outs2)):
+        for key in ("ids", "uv", "norm"):
+            if not np.array_equal(a[key], b[key]):
+                raise AssertionError(f"tracker determinism: {key} differs on frame {k}")
+    log("tracker_determinism", identical=True)
+    if n_prof:
+        profile_tracker(frames, ts, cam, dev, min(n_prof, N_FRAMES - 2))
+
+    # ---- 7. depth association for the last frames ----
+    cloud = depth_cloud([scans[i][0] for i in CLOUD_SCANS], traj)
+    depths, dms = register_last_frames(outs, ts, cloud, traj, dev)
+    share, med = depth_metrics(outs[-DEPTH_FRAMES:], depths, ts[-DEPTH_FRAMES:], world, traj)
+    log("depth", cloud_points=cloud.shape[0], frames=DEPTH_FRAMES, depth_share=round(share, 4),
+        jax_depth_share=ref["depth_share"], median_err_m=round(med, 5),
+        jax_median_err_m=ref["depth_median_err_m"], register_ms=round(dms, 4))
+    if abs(share - ref["depth_share"]) > DEPTH_SHARE_TOL:
+        raise AssertionError(f"depth: share {share:.4f} vs JAX {ref['depth_share']} "
+                             f"(tolerance {DEPTH_SHARE_TOL})")
+    if med > ref["depth_median_err_m"] * DEPTH_ERR_FACTOR + DEPTH_ERR_SLACK_M:
+        raise AssertionError(f"depth: median error {med:.4f} m vs JAX "
+                             f"{ref['depth_median_err_m']} m")
 
     kernels = [
         {"name": "knn_tail", "route": "cuda",
@@ -356,6 +658,16 @@ def main() -> int:
          "replaces": "lvislam_tpu/ops/pallas_gn.py:369",
          "launches": launches["K2"], "max_abs_err": max(e2c, e2s),
          "ms": m2c + m2s, "plain_ms": p2c + p2s},
+        {"name": "tile_hist", "route": "cuda",
+         "source": "lvislam_tpu_torch/csrc/clahe.cu",
+         "replaces": "lvislam_tpu/ops/pallas_clahe.py:53",
+         "launches": launches["K3"], "max_abs_err": max(r[0] for r in k34.values()),
+         "ms": k34["rendered"][2]["K3"], "plain_ms": k34["rendered"][2]["K3_plain"]},
+        {"name": "apply_cdf", "route": "cuda",
+         "source": "lvislam_tpu_torch/csrc/clahe.cu",
+         "replaces": "lvislam_tpu/ops/pallas_clahe.py:98",
+         "launches": launches["K4"], "max_abs_err": max(r[1] for r in k34.values()),
+         "ms": k34["rendered"][2]["K4"], "plain_ms": k34["rendered"][2]["K4_plain"]},
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

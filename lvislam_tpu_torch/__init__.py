@@ -7,13 +7,16 @@ tensors, the device taken from the inputs (or passed explicitly where a state
 is created), ``NamedTuple`` states in place of pytrees, and Python loops and
 branches where JAX has ``lax.while_loop`` / ``lax.cond``.
 
-The slice ported so far is the LiDAR-inertial per-scan step
-(``models.lio.pipeline.lio_full_step`` / ``LioPipeline``). Its two hot
-kernels are hand-written CUDA C++ for Hopper (``csrc/``), built with ``nvcc``
-at first use:
+The slices ported so far are the LiDAR-inertial per-scan step
+(``models.lio.pipeline.lio_full_step`` / ``LioPipeline``) and the visual
+front end (``models.vio.feature_tracker.tracker_step`` / ``FeatureTracker``,
+with ``register_depth``). Their kernels are hand-written CUDA C++ for Hopper
+(``csrc/``), built with ``nvcc`` at first use:
 
-- K1 ``ops.knn_tail``   — voxel-hash candidate scoring + top-5;
-- K2 ``ops.gn_partials`` — LOAM coefficients + Gauss-Newton row partials.
+- K1 ``ops.knn_tail``      — voxel-hash candidate scoring + top-5;
+- K2 ``ops.gn_partials``   — LOAM coefficients + Gauss-Newton row partials;
+- K3 ``ops.clahe.tile_hist`` — CLAHE's per-tile histograms;
+- K4 ``ops.clahe.apply_cdf`` — CLAHE's bilinear tile-CDF application.
 
 This package never imports ``jax`` or ``lvislam_tpu``.
 """

@@ -24,7 +24,7 @@ SRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 # nvcc's default -fmad=true is kept: it contracts K2's multiply-adds into
 # FMAs, as XLA's CPU backend (which computed the reference trajectories)
-# does. K1 scores with explicitly rounded intrinsics and is not affected.
+# does. K1, K3 and K4 use explicitly rounded intrinsics and are not affected.
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC"]
 
@@ -39,6 +39,10 @@ _SIGNATURES = {
     "lvt_knn_tail": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
     # pts, nbr, par, out, N, kind, stream
     "lvt_gn_partials": [_P, _P, _P, _P, _I, _I, _P],
+    # img, hist, H, W, tiles, n_bins, stream
+    "lvt_clahe_hist": [_P, _P, _I, _I, _I, _I, _P],
+    # img, cdf, out, H, W, tiles, n_bins, stream
+    "lvt_clahe_apply": [_P, _P, _P, _I, _I, _I, _I, _P],
 }
 
 

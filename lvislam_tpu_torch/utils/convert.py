@@ -1,7 +1,8 @@
 """Carry state across from the JAX package.
 
 Turns a JAX ``LioMapState`` (any NamedTuple tree whose leaves go through
-``np.asarray``), ``LioCaps``, ``LioParams`` and ``LioConfig`` into the
+``np.asarray``), ``LioCaps``, ``LioParams``, ``LioConfig``,
+``CameraIntrinsics``, ``TrackerParams`` and ``TrackerState`` into the
 port's objects on a given device, so both implementations can start from
 one state. Works on the objects' field names only; imports nothing of JAX.
 """
@@ -13,7 +14,9 @@ import dataclasses
 import numpy as np
 import torch
 
+from ..core.config import CameraIntrinsics
 from ..models.lio import mapping, pipeline
+from ..models.vio import feature_tracker as ft
 from ..ops import posegraph as pg
 from ..ops import voxel_hash as vh
 
@@ -69,3 +72,20 @@ def params_from_jax(jparams) -> mapping.LioParams:
 def config_from_jax(jcfg) -> pipeline.LioConfig:
     return _dc(pipeline.LioConfig, jcfg, caps=caps_from_jax(jcfg.caps),
                params=params_from_jax(jcfg.params))
+
+
+def camera_from_jax(jcam) -> CameraIntrinsics:
+    return _dc(CameraIntrinsics, jcam)
+
+
+def tracker_params_from_jax(jparams) -> ft.TrackerParams:
+    return _dc(ft.TrackerParams, jparams)
+
+
+def tracker_state_from_jax(jstate, device=None) -> ft.TrackerState:
+    """A JAX ``TrackerState`` (its ``prev_pyr`` tuple included) -> the
+    port's ``TrackerState`` on `device`."""
+    fields = {name: _tensor(getattr(jstate, name), device)
+              for name in ft.TrackerState._fields if name != "prev_pyr"}
+    pyr = tuple(_tensor(level, device) for level in jstate.prev_pyr)
+    return ft.TrackerState(prev_pyr=pyr, **fields)

@@ -1,11 +1,13 @@
-"""Synthetic lidar world — a numpy copy of the lidar half of
-``lvislam_tpu.utils.synthetic``: the room world, batch raycasting, smooth
-analytic trajectories with an ideal IMU, and one spinning multi-beam lidar
-sweep with real motion skew.
+"""Synthetic world — a numpy copy of ``lvislam_tpu.utils.synthetic``: the
+room world, batch raycasting, smooth analytic trajectories with an ideal
+IMU, one spinning multi-beam lidar sweep with real motion skew, and camera
+images of the procedurally textured world through any camera model.
 
-The copy exists so the port can make the bench's scans where JAX is not
-installed; the tests hold it to the JAX package's module bit for bit.
-Everything is host-side NumPy float64.
+The copy exists so the port can make the bench's scans and frames where JAX
+is not installed; the tests hold it to the JAX package's module. Everything
+is host-side NumPy float64, except the per-pixel camera rays, which the
+port's ``ops.camera.lift_projective`` computes in float32 on the CPU, as
+the JAX module's does.
 """
 
 from __future__ import annotations
@@ -237,3 +239,90 @@ def simulate_lidar_scan(
         true_pos=p0[0],
         true_R=R0[0],
     )
+
+
+# ---------------------------------------------------------------------------
+# Camera images
+# ---------------------------------------------------------------------------
+
+def procedural_texture(pts: np.ndarray) -> np.ndarray:
+    """Deterministic pseudo-random intensity from 3D position — a 'painted'
+    world for photometric (KLT) simulation. Smooth-ish multi-frequency hash."""
+    # wavelengths 0.5-4 m: smooth at typical pixel footprints so photometric
+    # tracking (LK) sees valid gradients instead of aliasing noise
+    v = (
+        np.sin(pts @ np.array([1.7, 2.9, 1.3])) * 0.45
+        + np.sin(pts @ np.array([4.1, 3.3, 5.7]) + 1.3) * 0.35
+        + np.sin(pts @ np.array([8.9, 7.1, 11.3]) + 2.1) * 0.2
+    )
+    return (0.5 + 0.45 * v).astype(np.float32)
+
+
+_RAY_GRID_CACHE: dict = {}
+
+# the rendered camera's axes in the body frame: camera x right, y down,
+# z forward; body x forward, y left, z up
+R_CAM_BODY = np.array([[0, -1, 0], [0, 0, -1], [1, 0, 0]], float).T
+
+
+def camera_ray_grid(cam) -> np.ndarray:
+    """Unit ray per pixel for a ``CameraIntrinsics`` (any of the four
+    camodocal models, through the port's ``ops.camera.lift_projective`` on
+    the CPU) — the static part of rendering, computed once per intrinsics
+    and cached."""
+    key = (cam.model_type, cam.image_width, cam.image_height, cam.gamma1,
+           cam.gamma2, cam.u0, cam.v0, cam.k1, cam.k2, cam.p1, cam.p2,
+           getattr(cam, "xi", 0.0))
+    hit = _RAY_GRID_CACHE.get(key)
+    if hit is not None:
+        return hit
+    import torch
+
+    from ..ops import camera as camops
+
+    u, v = np.meshgrid(np.arange(cam.image_width), np.arange(cam.image_height))
+    uv = np.stack([u, v], axis=-1).reshape(-1, 2).astype(np.float32)
+    rays = camops.lift_projective(torch.from_numpy(uv), cam).numpy().astype(np.float64)
+    rays /= np.linalg.norm(rays, axis=-1, keepdims=True)
+    _RAY_GRID_CACHE[key] = rays
+    return rays
+
+
+def render_camera_image(
+    world: World,
+    traj: Trajectory,
+    t: float,
+    width: int = 320,
+    height: int = 240,
+    f: float = 200.0,
+    R_cam_body: np.ndarray | None = None,
+    t_cam_body: np.ndarray | None = None,
+    cam=None,
+):
+    """Raycast an image of the procedurally textured world: a centered
+    pinhole at (width, height, f) by default, or — when `cam` (a
+    ``CameraIntrinsics``) is given — through the full camera model including
+    its distortion/mirror geometry (e.g. the shipped MEI 1024x576 rig)."""
+    p, R = traj.pose(np.array([t]))
+    p, R = p[0], R[0]
+    if R_cam_body is None:
+        R_cam_body = R_CAM_BODY
+    if t_cam_body is None:
+        t_cam_body = np.zeros(3)
+    if cam is not None:
+        width, height = cam.image_width, cam.image_height
+        d_cam = camera_ray_grid(cam)
+    else:
+        u, v = np.meshgrid(np.arange(width), np.arange(height))
+        d_cam = np.stack(
+            [(u - width / 2) / f, (v - height / 2) / f, np.ones_like(u, float)],
+            axis=-1,
+        ).reshape(-1, 3)
+        d_cam = d_cam / np.linalg.norm(d_cam, axis=-1, keepdims=True)
+    R_wc = R @ R_cam_body
+    origin = p + R @ t_cam_body
+    d_world = d_cam @ R_wc.T
+    rngs = raycast(world, np.broadcast_to(origin, d_world.shape), d_world)
+    pts = origin + d_world * np.where(np.isfinite(rngs), rngs, 0.0)[:, None]
+    img = np.where(np.isfinite(rngs), procedural_texture(pts), 0.0)
+    return img.reshape(height, width).astype(np.float32)

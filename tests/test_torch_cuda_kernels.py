@@ -1,4 +1,4 @@
-"""Kernels K1 and K2 on the card against their plain PyTorch versions (the
+"""Kernels K1-K4 on the card against their plain PyTorch versions (the
 CPU tests reach only the plain versions: a CUDA kernel has no interpret
 mode). Marked `cuda`; each test skips when no CUDA device is present. Run on
 a GPU machine from the repository root with
@@ -12,7 +12,9 @@ multiply-adds are contracted into FMAs). K2 is checked on neighbourhoods
 from the synthetic world, as the step sees them. On random thin planes the
 f32 plane fit is ill-conditioned, and rounding alone moves the sums past
 2e-4 of scale: on such cases the TPU kernel in interpret mode differs from
-the JAX XLA path by up to 8e-3 of scale."""
+the JAX XLA path by up to 8e-3 of scale. K3's counts identical; K4 within
+1e-6 (every op rounded on its own in the plain version's order, so
+measured equal), at the rig's 576x1024 and at ragged shapes."""
 
 import os
 
@@ -20,7 +22,9 @@ import numpy as np
 import pytest
 import torch
 
+from lvislam_tpu_torch.ops import clahe
 from lvislam_tpu_torch.ops import gn_partials as gnp
+from lvislam_tpu_torch.ops import image as imops
 from lvislam_tpu_torch.ops import knn_tail as kt
 
 pytestmark = pytest.mark.cuda
@@ -29,7 +33,7 @@ pytestmark = pytest.mark.cuda
 @pytest.fixture(scope="module")
 def cuda():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: kernels K1/K2 run only on the card")
+        pytest.skip("needs a CUDA device: kernels K1-K4 run only on the card")
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     return torch.device("cuda")
 
@@ -83,3 +87,40 @@ def test_wrappers_refuse_bad_inputs_on_the_card(cuda):
     with pytest.raises(ValueError):
         gnp.gn_partials(torch.zeros((8, 4), device=cuda), torch.zeros((20, 4), device=cuda),
                         torch.zeros(39, device=cuda), "surf")
+
+
+@pytest.mark.parametrize("H,W,tiles,n_bins", [(576, 1024, 8, 256), (240, 320, 8, 256),
+                                              (100, 150, 8, 256), (37, 61, 8, 256),
+                                              (576, 1024, 4, 1024)])
+def test_clahe_kernels_match_plain(cuda, H, W, tiles, n_bins):
+    rng = np.random.default_rng(H + W)
+    img = torch.as_tensor(rng.random((H, W), dtype=np.float32) ** 2, device=cuda)
+    img[0, :4] = torch.tensor([-0.5, 0.0, 1.0, 1.5])  # out-of-range values clamp
+    n3, n4 = clahe.HIST_LAUNCHES, clahe.APPLY_LAUNCHES
+    h1 = clahe.tile_hist(img, tiles, n_bins)
+    h0 = clahe.tile_hist_plain(img, tiles, n_bins)
+    cdf = imops.clip_cdf(h0, (H // tiles) * (W // tiles))
+    o1 = clahe.apply_cdf(img, cdf, tiles)
+    o0 = clahe.apply_cdf_plain(img, cdf, tiles)
+    torch.cuda.synchronize()
+    assert (clahe.HIST_LAUNCHES, clahe.APPLY_LAUNCHES) == (n3 + 1, n4 + 1)
+    assert torch.equal(h1, h0)
+    assert float((o1 - o0).abs().max()) <= 1e-6
+
+
+def test_clahe_on_the_card_equals_the_cpu(cuda):
+    """The whole CLAHE (K3, the CDF step, K4) on the card against the same
+    function on the CPU, which runs the plain versions."""
+    img = np.random.default_rng(5).random((576, 1024), dtype=np.float32)
+    a = imops.clahe(torch.as_tensor(img, device=cuda)).cpu()
+    b = imops.clahe(torch.from_numpy(img))
+    assert float((a - b).abs().max()) <= 1e-6
+
+
+def test_clahe_wrappers_refuse_bad_inputs_on_the_card(cuda):
+    with pytest.raises(TypeError):
+        clahe.tile_hist(torch.zeros((64, 64), dtype=torch.float64, device=cuda))
+    with pytest.raises(ValueError):
+        clahe.tile_hist(torch.zeros((4, 64), device=cuda))
+    with pytest.raises(ValueError):
+        clahe.apply_cdf(torch.zeros((64, 64), device=cuda), torch.zeros((63, 256), device=cuda))
