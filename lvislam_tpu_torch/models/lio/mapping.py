@@ -20,6 +20,7 @@ import torch
 from torch.profiler import record_function
 
 from ...core import lie
+from ...core.device import resolve as resolve_device
 from ...core.hostsync import host_bool, host_int
 from ...ops import icp as icp_ops
 from ...ops import pointcloud as pc
@@ -157,8 +158,9 @@ class MapOutputs(NamedTuple):
 
 
 def lio_init(caps: LioCaps, device=None, dtype=torch.float32) -> LioMapState:
+    """The empty map state on `device` (the card unless named)."""
     K = caps.max_keyframes
-    dev = device
+    dev = resolve_device(device)
 
     def z(*shape, dt=dtype):
         return torch.zeros(shape, dtype=dt, device=dev)

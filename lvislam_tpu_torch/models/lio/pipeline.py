@@ -20,6 +20,7 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
+from ...core.device import resolve as resolve_device
 from ...core.hostsync import host_bool
 from . import frontend, mapping
 
@@ -184,11 +185,14 @@ def pack_scan(cfg: LioConfig, scan: dict, imu_rel_time: np.ndarray,
 
 
 class LioPipeline:
-    """Per-scan LIO processing with device-resident state on `device`."""
+    """Per-scan LIO processing with device-resident state on `device`
+    (the card unless named; a given `state` names its own)."""
 
     def __init__(self, cfg: LioConfig, device=None, state: mapping.LioMapState | None = None):
         self.cfg = cfg
-        self.device = torch.device(device) if device is not None else torch.device("cpu")
+        if device is None and state is not None:
+            device = state.x6.device
+        self.device = resolve_device(device)
         self.state = state if state is not None else mapping.lio_init(cfg.caps, self.device)
         self.trajectory = []  # (stamp, x6 tensor on the device)
         self.scan_counter = 0

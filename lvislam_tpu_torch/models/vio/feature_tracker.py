@@ -29,6 +29,7 @@ from torch import nn
 
 from ...core import lie
 from ...core.config import CameraIntrinsics
+from ...core.device import resolve as resolve_device
 from ...ops import camera, depth_assoc, gftt, klt, ransac
 from ...ops import image as imops
 
@@ -83,6 +84,8 @@ def default_sampler(weights: torch.Tensor, n_hyp: int, k: int) -> torch.Tensor:
 
 def tracker_init(height: int, width: int, params: TrackerParams,
                  dtype=torch.float32, device=None) -> TrackerState:
+    """The empty tracker state on `device` (the card unless named)."""
+    device = resolve_device(device)
     N = params.max_cnt
     shapes, h, w = [(height, width)], height, width
     for _ in range(params.klt_levels):

@@ -37,10 +37,22 @@ class KLTResult(NamedTuple):
 def _patches(img: torch.Tensor, corners: torch.Tensor, S: int) -> torch.Tensor:
     """(N, S, S) integer-cornered patches; corners (N, 2) int (x0, y0),
     pre-clipped to [0, W-S] x [0, H-S]. On a level smaller than the patch,
-    rows past the image repeat its last row and columns past it read 0, as
-    the JAX gather + selection matmul give."""
+    columns past the image read 0 and rows past it read what the JAX gather
+    clamps them to: the last row on a level at most 128 wide; on a wider
+    one, whose rows JAX fetches as pairs of 128-lane blocks of the
+    flattened image, the last row's last block, in both halves of the
+    pair."""
     H, W = img.shape
     ar = torch.arange(S, device=img.device)
+    if H < S and W > 128:
+        nb = (W + 127) // 128
+        flat = torch.nn.functional.pad(img, (0, nb * 128 - W)).reshape(H * nb, 128)
+        b = torch.clamp(corners[:, 0] // 128, 0, nb - 2)
+        idx = ((corners[:, 1, None] + ar) * nb + b[:, None])[:, :, None] \
+            + torch.arange(2, device=img.device)
+        wide = flat[torch.clamp(idx, max=H * nb - 1)].reshape(-1, S, 256)
+        sel = (corners[:, 0] - b * 128)[:, None] + ar
+        return torch.gather(wide, 2, sel[:, None, :].expand(-1, S, -1))
     rows = torch.clamp(corners[:, 1, None] + ar, max=H - 1)
     cols = corners[:, 0, None] + ar
     P = img[rows[:, :, None], torch.clamp(cols, max=W - 1)[:, None, :]]

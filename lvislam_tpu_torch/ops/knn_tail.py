@@ -1,28 +1,38 @@
-"""Kernel K1: voxel-hash candidate scoring + top-k.
+"""Kernel K1: voxel-hash candidate scoring + top-k, for two query sets in
+one launch.
 
 Replaces the TPU kernel ``lvislam_tpu/ops/pallas_knn.py:79 topk_tail``
-(body ``_tail_kernel``). It computes what that kernel computes, not its lane
-layout: for each query, over the 27 cells × B bucket lanes of cell-relative
-int16 candidates, the scaled offset ``cand + (corner - q)``, the tag match
-(which is also the occupancy mask), the squared distance summed x, y, z in
-that order, and the k smallest (distance, flat position ``j*B + rank``)
-pairs, ties to the lowest position — exactly ``lax.top_k`` over the flat
-candidate axis, as ``voxel_hash.query`` selects.
+(body ``_tail_kernel``), which the JAX step calls once per feature class.
+It computes what that kernel computes, not its lane layout: for each query,
+over the 27 cells × B bucket lanes of cell-relative int16 candidates, the
+scaled offset ``cand + (corner - q)``, the tag match (which is also the
+occupancy mask), the squared distance summed x, y, z in that order, and the
+k smallest (distance, flat position ``j*B + rank``) pairs, ties to the
+lowest position — exactly ``lax.top_k`` over the flat candidate axis, as
+``voxel_hash.query`` selects.
 
-CUDA design (``csrc/knn_tail.cu``): one warp per query. Each lane owns the
-flat positions ``lane, lane+32, ...`` (at most 27 of them, kept in
-registers), reads the planar int16 x/y/z/tag straight from the gathered
-row, and scores them with non-contracted f32 ops in the plain version's
-order. Then k rounds of a warp-shuffle argmin on (distance, position); the
-winner's owner marks it spent. What bounds it on the card: the read of the
-gathered rows (Q·27·4·B int16, 7 MB at Q=2048, B=16) — one pass, no
-intermediate distance tensor in device memory.
+CUDA design (``csrc/knn_tail.cu``): one grid over both query sets
+(``knn_tail_pair``: the LIO step's corner and surf classes) of persistent
+warps, each looping over queries. At B = 16 and 32 (compiled as constants)
+a warp stages its query's row in shared memory with one ``cp.async.bulk``
+copy completed on an mbarrier (want_tag and corner_off with 4-byte
+``cp.async`` copies), scores it from there — each lane 8 consecutive ranks
+of a cell from one 16-byte vector of each of the x, y, z and tag planes —
+and then starts the next query's copies, which stream in while it selects.
+Any other B reads one candidate at a time, one warp a query. Each lane scores its positions
+with non-contracted f32 ops in the plain version's order; then k rounds of
+a lane-local tree argmin and two warp-wide ``redux.sync`` minima on
+(distance, position). What bounds it on the card: the one read of the
+gathered rows (Q·27·4·B int16: 11.8 MB for the step's pair, 3.5 µs at HBM
+rate). At B = 16 and 32 the rows must start on a 16-byte boundary: the
+wrapper refuses a view that does not.
 """
 
 from __future__ import annotations
 
 import torch
 
+from ..core.device import common
 from . import _kernels
 
 _BIG = 1e10
@@ -49,8 +59,14 @@ def knn_tail_plain(cand: torch.Tensor, want_tag: torch.Tensor,
             srt.indices[:, :k].to(torch.int32))
 
 
-def _launch(cand, want_tag, corner_off, bucket: int, k: int):
-    global LAUNCHES
+def knn_tail_pair_plain(a, b, k: int = 5):
+    """Plain PyTorch version of ``knn_tail_pair``: one ``knn_tail_plain``
+    per query set."""
+    return knn_tail_plain(*a, k=k), knn_tail_plain(*b, k=k)
+
+
+def _checked(cand, want_tag, corner_off, bucket: int, k: int):
+    """The set's tensors made contiguous, with fresh (dist, pos) outputs."""
     Q = cand.shape[0]
     if cand.dtype != torch.int16 or want_tag.dtype != torch.int32 \
             or corner_off.dtype != torch.float32:
@@ -63,23 +79,49 @@ def _launch(cand, want_tag, corner_off, bucket: int, k: int):
                          f"{tuple(corner_off.shape)} for B={bucket}")
     if not (1 <= bucket <= 32 and 1 <= k <= 27 * bucket):
         raise ValueError(f"knn_tail: unsupported B={bucket}, k={k}")
-    for t in (want_tag, corner_off):
-        if t.device != cand.device:
-            raise ValueError("knn_tail: inputs on different devices")
     cand, want_tag, corner_off = (cand.contiguous(), want_tag.contiguous(),
                                   corner_off.contiguous())
+    if bucket in (16, 32) and cand.data_ptr() % 16:  # the kernel's vector loads
+        raise ValueError("knn_tail: candidate rows must start on a 16-byte "
+                         f"boundary (address {cand.data_ptr():#x})")
     dist = torch.empty((Q, k), dtype=torch.float32, device=cand.device)
     pos = torch.empty((Q, k), dtype=torch.int32, device=cand.device)
-    if Q == 0:
-        return dist, pos
-    lib = _kernels.library()
-    stream = torch.cuda.current_stream(cand.device).cuda_stream
-    err = lib.lvt_knn_tail(cand.data_ptr(), want_tag.data_ptr(),
-                           corner_off.data_ptr(), dist.data_ptr(),
-                           pos.data_ptr(), Q, bucket, k, stream)
-    _kernels.check(err, "lvt_knn_tail")
-    LAUNCHES += 1
-    return dist, pos
+    return cand, want_tag, corner_off, dist, pos
+
+
+def _launch(sets, k: int):
+    """One K1 launch over one or two (cand, want_tag, corner_off, bucket)
+    query sets; returns [(dist, pos)] per set."""
+    global LAUNCHES
+    args = [_checked(*qs, k) for qs in sets]
+    dev = args[0][0].device
+    if sum(a[0].shape[0] for a in args) > 0:
+        ptrs = []
+        for (cand, want_tag, corner_off, dist, pos), qs in zip(args, sets):
+            ptrs += [cand.data_ptr(), want_tag.data_ptr(), corner_off.data_ptr(),
+                     dist.data_ptr(), pos.data_ptr(), cand.shape[0], qs[3]]
+        if len(sets) == 1:
+            ptrs += [None] * 5 + [0, 0]
+        lib = _kernels.library()
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        _kernels.check(lib.lvt_knn_tail_pair(*ptrs, k, stream), "lvt_knn_tail_pair")
+        LAUNCHES += 1
+    return [(a[3], a[4]) for a in args]
+
+
+def knn_tail_pair(a, b, k: int = 5):
+    """``knn_tail`` of two query sets ``a`` and ``b``, each (cand,
+    want_tag, corner_off, bucket), in one launch of kernel K1. Returns
+    ((dist_a, pos_a), (dist_b, pos_b)). Tensors all on the CPU take the
+    plain version; tensors all on the card launch the kernel; any mix
+    raises."""
+    dev = common([*a[:3], *b[:3]], "knn_tail")
+    if dev.type == "cpu":
+        return knn_tail_pair_plain(a, b, k)
+    if dev.type != "cuda":
+        raise ValueError(f"knn_tail: unsupported device {dev}")
+    ra, rb = _launch([a, b], k)
+    return ra, rb
 
 
 def knn_tail(cand: torch.Tensor, want_tag: torch.Tensor,
@@ -89,9 +131,10 @@ def knn_tail(cand: torch.Tensor, want_tag: torch.Tensor,
     cand (Q, 27*4*B) int16 planar bucket rows, want_tag (Q, 27) int32,
     corner_off (Q, 81) f32 scaled ``[27 cx | 27 cy | 27 cz] - query``.
     Returns (dist (Q,k) f32, pos (Q,k) int32). A CPU tensor takes the plain
-    version; a CUDA tensor launches kernel K1."""
-    if cand.device.type == "cpu":
+    version; a CUDA tensor launches kernel K1 with this one query set."""
+    dev = common((cand, want_tag, corner_off), "knn_tail")
+    if dev.type == "cpu":
         return knn_tail_plain(cand, want_tag, corner_off, bucket, k)
-    if cand.device.type != "cuda":
-        raise ValueError(f"knn_tail: unsupported device {cand.device}")
-    return _launch(cand, want_tag, corner_off, bucket, k)
+    if dev.type != "cuda":
+        raise ValueError(f"knn_tail: unsupported device {dev}")
+    return _launch([(cand, want_tag, corner_off, bucket)], k)[0]

@@ -9,9 +9,9 @@ device-to-host read of the convergence flag per iteration
 - ``use_pallas``: the query tail runs through kernel K1 (``ops.knn_tail``);
 - ``gather_once`` (needs ``use_pallas``): gather each query's 27-cell
   neighbourhood once at the initial pose and re-score it through K1 on the
-  refresh schedule;
-- ``use_pallas_gn``: coefficients + normal equations through kernel K2
-  (``ops.gn_partials``).
+  refresh schedule, one launch for both classes;
+- ``use_pallas_gn``: coefficients + normal equations of both classes through
+  one launch of kernel K2 (``ops.gn_partials``) per iteration.
 
 On CPU tensors the kernels' plain versions run, so every combination is
 testable here.
@@ -228,9 +228,9 @@ def scan_to_map_hashed(
         g_surf = vh.query_gather(surf_hash, apply_pose(R0, x6_init[3:6], surf_pts))
 
     def nn_idx(cw, sw):
-        if gather_once:
-            ci, _ = vh.query_score(corner_hash, g_corner, cw, 5)
-            si, _ = vh.query_score(surf_hash, g_surf, sw, 5)
+        if gather_once:  # one K1 launch for both classes
+            (ci, _), (si, _) = vh.query_score_pair(corner_hash, g_corner, cw,
+                                                    surf_hash, g_surf, sw, 5)
         else:
             ci, _ = q_fn(corner_hash, cw, 5)
             si, _ = q_fn(surf_hash, sw, 5)
@@ -264,11 +264,10 @@ def scan_to_map_hashed(
                 sn_blk = gnp.pack_nbrs(*nbr_s)
         if use_pallas_gn:
             par = gnp.pack_pose(Rm, t, _euler_jac_mats(st.x6))
-            Hc, gc, nc = gnp.gn_partials(c_blk, cn_blk, par, "corner")
-            Hs, gs, ns = gnp.gn_partials(s_blk, sn_blk, par, "surf")
+            H, g, n = gnp.gn_partials_pair(c_blk, cn_blk, s_blk, sn_blk, par)
             new_x, conv, proj, degen, n_res = gn_solve(
-                st.x6, Hc + Hs, gc + gs, nc + ns, it == 0, st.proj,
-                st.degenerate, eigen_thresh=eigen_thresh)
+                st.x6, H, g, n, it == 0, st.proj, st.degenerate,
+                eigen_thresh=eigen_thresh)
         else:
             cc = corner_coeffs_nbrs(cw, corner_valid, *nbr_c)
             sc = surf_coeffs_nbrs(sw, surf_pts, surf_valid, *nbr_s)

@@ -12,7 +12,8 @@ Query paths:
 - ``query``: gather the 27 neighbouring buckets, score, stable top-k — plain
   PyTorch, the reference the kernel is held to;
 - ``query_gather`` + ``query_score``: gather once, re-score at updated query
-  positions through kernel K1 (``ops.knn_tail``);
+  positions through kernel K1 (``ops.knn_tail``); ``query_score_pair`` does
+  two hashes' in one launch;
 - ``query_fused``: both at once.
 
 All score candidates in the same scaled domain with the same f32 op order,
@@ -222,16 +223,30 @@ def query_gather(h: VoxelHash, queries: torch.Tensor) -> GatheredCandidates:
                               corner_s=corner_s, cand=cand)
 
 
+def _query_set(h: VoxelHash, g: GatheredCandidates, queries: torch.Tensor):
+    """K1's (cand, want_tag, corner_off, bucket) for cached candidates."""
+    q_s = queries.to(torch.float32) * (_QUANT / h.cell)
+    corner_off = (g.corner_s - q_s[:, None, :]).permute(0, 2, 1).reshape(-1, 81)
+    return g.cand, g.want_tag, corner_off, h.rel.shape[2]
+
+
 def query_score(h: VoxelHash, g: GatheredCandidates, queries: torch.Tensor,
                 k: int = 5):
     """Score cached candidates against updated query positions (kernel K1
     on the card). Exact for queries still inside their gather-time cell."""
-    T, _, B = h.rel.shape
-    Q = queries.shape[0]
-    q_s = queries.to(torch.float32) * (_QUANT / h.cell)
-    corner_off = (g.corner_s - q_s[:, None, :]).permute(0, 2, 1).reshape(Q, 81)
-    dist_s, pos = _knn_tail.knn_tail(g.cand, g.want_tag, corner_off, bucket=B, k=k)
-    return _finish(h, g.slots, dist_s, pos, B)
+    qs = _query_set(h, g, queries)
+    dist_s, pos = _knn_tail.knn_tail(*qs, k=k)
+    return _finish(h, g.slots, dist_s, pos, qs[3])
+
+
+def query_score_pair(h_a: VoxelHash, g_a: GatheredCandidates, q_a: torch.Tensor,
+                     h_b: VoxelHash, g_b: GatheredCandidates, q_b: torch.Tensor,
+                     k: int = 5):
+    """``query_score`` of two hashes' cached candidates in one launch of
+    kernel K1; returns ((idx_a, sqdist_a), (idx_b, sqdist_b))."""
+    a, b = _query_set(h_a, g_a, q_a), _query_set(h_b, g_b, q_b)
+    (da, pa), (db, pb) = _knn_tail.knn_tail_pair(a, b, k=k)
+    return _finish(h_a, g_a.slots, da, pa, a[3]), _finish(h_b, g_b.slots, db, pb, b[3])
 
 
 def query_fused(h: VoxelHash, queries: torch.Tensor, k: int = 5):

@@ -6,10 +6,12 @@ a GPU machine from the repository root with
 (`--noconftest`: the test tree's conftest imports JAX).
 
 Tolerances: K1 positions identical and distances within rtol 1e-6 (same f32
-op order, explicitly rounded); K2's H and g within 2e-4 of their scale and
-the residual count exact (the block sums run in another order, and K2's
-multiply-adds are contracted into FMAs). K2 is checked on neighbourhoods
-from the synthetic world, as the step sees them. On random thin planes the
+op order, explicitly rounded); K2's H and g of each class within 2e-4 of
+that class's scale and the residual count exact (the block sums run in
+another order, and K2's multiply-adds are contracted into FMAs); K2's one
+launch for both classes bit-equal to the per-class path (block rows,
+torch.sum, then the add). K2 is checked on neighbourhoods from the
+synthetic world, as the step sees them. On random thin planes the
 f32 plane fit is ill-conditioned, and rounding alone moves the sums past
 2e-4 of scale: on such cases the TPU kernel in interpret mode differs from
 the JAX XLA path by up to 8e-3 of scale. K3's counts identical; K4 within
@@ -47,15 +49,21 @@ def step_inputs(cuda):
     return chip_smoke.parity_inputs(cuda)
 
 
-@pytest.mark.parametrize("B,Q", [(16, 2048), (32, 512), (16, 37)])
-def test_knn_tail_kernel_matches_plain(cuda, B, Q):
-    rng = np.random.default_rng(B + Q)
+def _random_knn_set(cuda, B, Q, seed):
+    rng = np.random.default_rng(seed)
     cand = rng.integers(-2048, 2048, (Q, 27, 4, B)).astype(np.int16)
     cand[:, :, 3, :] = rng.integers(-1, 4, (Q, 27, B))
-    cand[-1, :, 3, :] = -1  # an exhausted query
+    cand[Q - 1:, :, 3, :] = -1  # an exhausted query
     want = rng.integers(0, 4, (Q, 27)).astype(np.int32)
     off = rng.uniform(-4096, 4096, (Q, 81)).astype(np.float32)
-    args = [torch.as_tensor(a, device=cuda) for a in (cand.reshape(Q, -1), want, off)]
+    return [torch.as_tensor(a, device=cuda) for a in (cand.reshape(Q, 27 * 4 * B), want, off)] + [B]
+
+
+@pytest.mark.parametrize("B,Q", [(16, 2048), (32, 512), (16, 37), (7, 100), (24, 64)])
+def test_knn_tail_kernel_matches_plain(cuda, B, Q):
+    """One query set (the pair launch with the other set empty), at the
+    compiled buckets 16 and 32 and at buckets given at run time."""
+    *args, _ = _random_knn_set(cuda, B, Q, B + Q)
     n0 = kt.LAUNCHES
     d1, p1 = kt.knn_tail(*args, bucket=B, k=5)
     d0, p0 = kt.knn_tail_plain(*args, bucket=B, k=5)
@@ -65,18 +73,57 @@ def test_knn_tail_kernel_matches_plain(cuda, B, Q):
     torch.testing.assert_close(d1, d0, rtol=1e-6, atol=0.0)
 
 
-@pytest.mark.parametrize("kind,n", [("corner", 512), ("corner", 200), ("surf", 2048), ("surf", 300)])
-def test_step_kernels_match_plain(step_inputs, kind, n):
-    """Both kernels at the LIO step's shapes (and a ragged last block) on
-    realistic neighbourhoods, through chip_smoke.py's own checks."""
+@pytest.mark.parametrize("sets", [((32, 512), (16, 2048)), ((16, 37), (7, 5)), ((32, 3), (32, 0)),
+                                  ((32, 3001), (16, 12007))])
+def test_knn_tail_pair_matches_plain(cuda, sets):
+    """Two query sets in one launch, an empty one among them; the last case
+    holds more queries than the card keeps warps, so each persistent warp
+    takes several, from both sets."""
+    a, b = (_random_knn_set(cuda, B, Q, 7 * B + Q) for B, Q in sets)
+    n0 = kt.LAUNCHES
+    got = kt.knn_tail_pair(a, b, k=5)
+    ref = kt.knn_tail_pair_plain(a, b, k=5)
+    torch.cuda.synchronize()
+    assert kt.LAUNCHES == n0 + 1
+    for (d1, p1), (d0, p0) in zip(got, ref):
+        assert torch.equal(p1, p0)
+        assert torch.equal(d1, d0)
+
+
+@pytest.mark.parametrize("n_c,n_s", [(512, 2048), (200, 300), (128, 128)])
+def test_step_kernels_match_plain(step_inputs, n_c, n_s):
+    """Both pair kernels at the LIO step's shapes (and ragged last blocks)
+    on realistic neighbourhoods, through chip_smoke.py's own checks."""
     import chip_smoke
 
     corner, surf, h_c, h_s, q_c, q_s, x6 = step_inputs
-    h, map_pts, q = (h_c, corner, q_c) if kind == "corner" else (h_s, surf, q_s)
     n1, n2 = kt.LAUNCHES, gnp.LAUNCHES
-    chip_smoke.check_knn_tail(h, q[:n], kind)
-    chip_smoke.check_gn_partials(h, map_pts, q[:n], x6, kind)
+    chip_smoke.check_knn_pair([chip_smoke.knn_set(h_c, q_c[:n_c]),
+                               chip_smoke.knn_set(h_s, q_s[:n_s])], ("corner", "surf"))
+    chip_smoke.check_gn_pair([chip_smoke.gn_blocks(h_c, corner, q_c[:n_c], x6),
+                              chip_smoke.gn_blocks(h_s, surf, q_s[:n_s], x6)],
+                             chip_smoke.gn_pose(x6))
     assert kt.LAUNCHES > n1 and gnp.LAUNCHES > n2
+
+
+@pytest.mark.parametrize("N", [128, 512, 2048])
+def test_gn_pair_bit_equal_to_per_class_path(step_inputs, N):
+    """K2's one launch for both classes gives the bits of the per-class path
+    (each class's block rows summed by torch.sum, then added), with N
+    points in each class."""
+    import chip_smoke
+
+    corner, surf, h_c, h_s, q_c, q_s, x6 = step_inputs
+    blocks = [chip_smoke.gn_blocks(h_c, corner, torch.cat([q_c] * 4)[:N], x6),
+              chip_smoke.gn_blocks(h_s, surf, q_s[:N], x6)]
+    par = chip_smoke.gn_pose(x6)
+    n0 = gnp.LAUNCHES
+    got = gnp.gn_partials_pair(*blocks[0], *blocks[1], par)
+    assert gnp.LAUNCHES == n0 + 1
+    raw, per_class = chip_smoke.gn_per_class_path(*blocks[0], *blocks[1], par)
+    assert chip_smoke.bits_equal(raw, per_class)
+    assert chip_smoke.bits_equal(got, raw)
+    assert int(got[2]) > N // 2
 
 
 def test_wrappers_refuse_bad_inputs_on_the_card(cuda):
@@ -84,9 +131,33 @@ def test_wrappers_refuse_bad_inputs_on_the_card(cuda):
         kt.knn_tail(torch.zeros((2, 27 * 4 * 16), dtype=torch.int32, device=cuda),
                     torch.zeros((2, 27), dtype=torch.int32, device=cuda),
                     torch.zeros((2, 81), device=cuda), bucket=16)
+    # a contiguous row view 2 bytes past a 16-byte boundary
+    buf = torch.zeros(2 * 27 * 4 * 16 + 1, dtype=torch.int16, device=cuda)
+    with pytest.raises(ValueError):
+        kt.knn_tail(buf[1:].view(2, 27 * 4 * 16), torch.zeros((2, 27), dtype=torch.int32,
+                                                               device=cuda),
+                    torch.zeros((2, 81), device=cuda), bucket=16)
     with pytest.raises(ValueError):
         gnp.gn_partials(torch.zeros((8, 4), device=cuda), torch.zeros((20, 4), device=cuda),
                         torch.zeros(39, device=cuda), "surf")
+    # one set on the CPU, the other on the card: neither path may take it
+    cpu_set = _random_knn_set(torch.device("cpu"), 16, 8, 1)
+    card_set = _random_knn_set(cuda, 32, 8, 2)
+    n0 = kt.LAUNCHES
+    for pair in ((cpu_set, card_set), (card_set, cpu_set)):
+        with pytest.raises(ValueError):
+            kt.knn_tail_pair(*pair, k=5)
+    blocks = [torch.zeros((8, 4)), torch.zeros((24, 4))]
+    n2 = gnp.LAUNCHES
+    with pytest.raises(ValueError):
+        gnp.gn_partials_pair(*blocks, *(b.to(cuda) for b in blocks), torch.zeros(39, device=cuda))
+    with pytest.raises(ValueError):
+        gnp.gn_partials_pair(*blocks, *blocks, torch.zeros(39, device=cuda))
+    assert (kt.LAUNCHES, gnp.LAUNCHES) == (n0, n2)
+    with pytest.raises(ValueError):
+        gnp.gn_partials_pair(torch.zeros((8, 4), device=cuda), torch.zeros((24, 4), device=cuda),
+                             torch.zeros((8, 5), device=cuda), torch.zeros((24, 4), device=cuda),
+                             torch.zeros(39, device=cuda))
 
 
 @pytest.mark.parametrize("H,W,tiles,n_bins", [(576, 1024, 8, 256), (240, 320, 8, 256),

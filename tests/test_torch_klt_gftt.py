@@ -98,10 +98,12 @@ def test_track_matches_jax(frames, levels, half, iters):
     np.testing.assert_allclose(rt.err.numpy(), np.asarray(rj.err), atol=1e-6, rtol=0)
 
 
-@pytest.mark.parametrize("shape", [(240, 320), (30, 40)])
+@pytest.mark.parametrize("shape", [(240, 320), (30, 40), (24, 200)])
 def test_patches_match_row_block_fetch(shape):
     """The direct (N, S, S) gather reads what JAX's row-block gather +
-    selection matmul reads, also on a level smaller than the patch."""
+    selection matmul reads, also on a level smaller than the patch, and on a
+    level shorter than the patch and wider than one 128-lane block, where
+    JAX's clamped flat index reads the last row's last block."""
     rng = np.random.default_rng(1)
     img = rng.random(shape).astype(np.float32)
     H, W = shape
@@ -111,3 +113,23 @@ def test_patches_match_row_block_fetch(shape):
     ref, _ = jk._row_block_patches(jnp.asarray(img), jnp.asarray(corners), S)
     got = tk._patches(_t(img), _t(corners).long(), S)
     np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
+
+
+@pytest.mark.parametrize("W", [200, 320])
+def test_track_on_a_short_wide_level_matches_jax(frames, W):
+    """LK on a 24-row level wider than 128: shorter than the 32-pixel patch,
+    so the patches' rows past the image come from JAX's clamped block
+    fetch. The bottom row of points samples those rows (their status is
+    false, their points and residuals still compared): repeating the last
+    row instead moved them by up to 3 px and the residual by 0.05."""
+    img0, img1 = (np.ascontiguousarray(f[100:124, 0:W]) for f in frames)
+    xs, ys = np.meshgrid(np.linspace(12.0, W - 14.0, 12), [8.25, 11.0, 14.75, 20.5])
+    pts = np.stack([xs.ravel(), ys.ravel()], -1).astype(np.float32)
+    valid = np.ones(len(pts), bool)
+    rj = jk.track(jnp.asarray(img0), jnp.asarray(img1), jnp.asarray(pts), jnp.asarray(valid),
+                  levels=0, half=5, iters=20)
+    rt = tk.track(_t(img0), _t(img1), _t(pts), _t(valid), levels=0, half=5, iters=20)
+    np.testing.assert_array_equal(rt.status.numpy(), np.asarray(rj.status))
+    assert np.asarray(rj.status).sum() > 5
+    np.testing.assert_allclose(rt.pts.numpy(), np.asarray(rj.pts), atol=1e-4, rtol=0)
+    np.testing.assert_allclose(rt.err.numpy(), np.asarray(rj.err), atol=1e-6, rtol=0)

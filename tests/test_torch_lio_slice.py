@@ -264,7 +264,7 @@ def test_replay_matches_jax(scans, jax_replay):
     tcfg = dataclasses.replace(
         tcfg, caps=dataclasses.replace(tcfg.caps, pallas_knn=True, pallas_gn=True),
         params=dataclasses.replace(tcfg.params, gatherOncePerScan=True))
-    pipe_t = tpl.LioPipeline(tcfg)
+    pipe_t = tpl.LioPipeline(tcfg, device="cpu")
     for s in scans:
         pipe_t.process_scan(*s)
     tj, tt = pipe_j.trajectory_array(), pipe_t.trajectory_array()

@@ -84,7 +84,7 @@ def _run(jstate, tstate, frames, t0):
 
 def test_six_steps_from_init(frames):
     outs = _run(jft.tracker_init(240, 320, PARAMS),
-                tft.tracker_init(240, 320, convert.tracker_params_from_jax(PARAMS)),
+                tft.tracker_init(240, 320, convert.tracker_params_from_jax(PARAMS), device="cpu"),
                 frames[:6], T0)
     for k, (oj, ot) in enumerate(outs):
         _assert_close_step(oj, ot, k)
@@ -114,7 +114,7 @@ def test_six_steps_from_a_carried_state(frames):
 
 def test_tracker_init_matches_jax():
     js = jft.tracker_init(240, 321, PARAMS)
-    ts = tft.tracker_init(240, 321, convert.tracker_params_from_jax(PARAMS))
+    ts = tft.tracker_init(240, 321, convert.tracker_params_from_jax(PARAMS), device="cpu")
     assert [tuple(p.shape) for p in ts.prev_pyr] == [p.shape for p in js.prev_pyr]
     for name in ("pts", "ids", "track_cnt", "norm_pts", "next_id", "prev_time", "initialized"):
         a, b = getattr(ts, name).numpy(), np.asarray(getattr(js, name))
@@ -126,8 +126,8 @@ def test_seed_prev_image_matches_jax(frames):
     tparams = convert.tracker_params_from_jax(PARAMS)
     img = np.ascontiguousarray(frames[0][:96, :128])
     js = jft.seed_prev_image(jft.tracker_init(96, 128, PARAMS), jnp.asarray(img), PARAMS)
-    ts = tft.seed_prev_image(tft.tracker_init(96, 128, tparams), torch.from_numpy(img),
-                             tparams)
+    ts = tft.seed_prev_image(tft.tracker_init(96, 128, tparams, device="cpu"),
+                             torch.from_numpy(img), tparams)
     assert bool(ts.initialized)
     for a, b in zip(ts.prev_pyr, js.prev_pyr):
         np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=1e-6, rtol=0)
@@ -136,7 +136,7 @@ def test_seed_prev_image_matches_jax(frames):
 def test_feature_tracker_module_is_tracker_step(frames):
     tcam, tparams = convert.camera_from_jax(CAM), convert.tracker_params_from_jax(PARAMS)
     module = tft.FeatureTracker(tparams, tcam)
-    s1, s2 = module.init_state(), tft.tracker_init(240, 320, tparams)
+    s1, s2 = module.init_state("cpu"), tft.tracker_init(240, 320, tparams, device="cpu")
     for k in range(3):
         s1, o1 = module(s1, torch.from_numpy(frames[k]), T0 + DT * k)
         s2, o2 = tft.tracker_step(s2, torch.from_numpy(frames[k]), T0 + DT * k, tparams, tcam)
