@@ -23,9 +23,10 @@ Phases, one line each:
    counts: one K2 launch per GN iteration, one K1 launch per refresh.
 4. determinism: a second replay must reproduce the trajectory bit for bit.
 5. CLAHE kernels K3 (tile_hist) and K4 (apply_cdf) from
-   ``lvislam_tpu_torch/csrc/clahe.cu`` against their plain versions on a
-   rendered MEI 576x1024 frame and on a uniform-random image, with
-   CUDA-event timings of both.
+   ``lvislam_tpu_torch/csrc/clahe.cu`` against their plain versions, bit for
+   bit, on a rendered MEI 576x1024 frame and a uniform-random image (the
+   vector kernels) and on the frame cropped to 571x1021 (the general
+   kernels), with CUDA-event timings of both.
 6. tracker: 20 MEI 1024x576 frames of the LIO replay's world and trajectory
    (t = 0.1 + i/10 s) through ``FeatureTracker`` at ``TrackerParams()``
    defaults with K3 and K4 on. Gates: each kernel launched once a frame;
@@ -40,8 +41,9 @@ Phases, one line each:
 8. alone: each kernel's raw entry point, 100 launches captured in a CUDA
    graph at the main path's shapes (inputs rotated out of L2 for K1, K3
    and K4), per-launch µs against its bound (bytes at 3.35 TB/s or f32
-   operations at 67 TFLOP/s), and the latency floor of K1 (one query) and
-   K2 (one point a class).
+   operations at 67 TFLOP/s), and the latency floor of K1 (one query), K2
+   (one point a class), K3 and K4 (an 8x8 image in one tile); K3 also on a
+   constant frame.
 
 Then one JSON line of kernel records, and last the result line
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero.
@@ -49,7 +51,10 @@ There is no CPU path: without a GPU the script fails.
 
 ``python3 chip_smoke.py --profile N`` adds torch.profiler traces of N
 steady scans and N steady tracker frames (device busy share, device time
-by kernel) before the result.
+by kernel; K1-K4's launches and device time a scan or frame) before the
+result. ``--sweep`` adds to phase 8 the launch sizes beside the wrappers'
+own: K3 at 1 to 8 slabs a tile, K4 at 9 to 36 rows a block, and both general
+kernels.
 """
 
 from __future__ import annotations
@@ -458,16 +463,15 @@ def profile_steady(cfg, scans, dev, n_prof: int):
             device_ms_per_scan=round(us / n_prof / 1e3, 4))
 
 
-def kernel_alone(sets, blocks, par, frame, dev):
+def kernel_alone(sets, blocks, par, frame, dev, sweep: bool = False):
     """Phase 8: each kernel's raw entry point alone, CUDA-graph timed at the
     main path's shapes (K1's two query sets `sets`, K2's two classes'
-    `blocks`, K3 and K4 on `frame`), against its bound. Inputs rotate
-    through enough copies that each launch finds them cold in L2. Returns
-    {name: record}."""
+    `blocks`, K3 and K4 on `frame`: see `clahe_alone`), against its bound.
+    Inputs rotate through enough copies that each launch finds them cold in
+    L2. Returns {name: record}."""
     import torch
 
-    from lvislam_tpu_torch.ops import _kernels, clahe
-    from lvislam_tpu_torch.ops import image as imops
+    from lvislam_tpu_torch.ops import _kernels
 
     lib = _kernels.library()
     rec = {}
@@ -547,20 +551,64 @@ def kernel_alone(sets, blocks, par, frame, dev):
                sum(b[0].shape[1] * K2_FLOPS_PER_POINT[kind] for b, kind in used),
                ",".join(f"{kind}:N={b[0].shape[1]}" for b, kind in used))
 
-    # ---- K3, K4: the rendered frame ----
+    clahe_alone(frame, dev, report, sweep)
+    return rec
+
+
+def clahe_alone(frame, dev, report, sweep: bool):
+    """Phase 8 for K3 and K4: the raw entry points on the rendered `frame`
+    as the wrappers launch them (cold in L2), on the smallest image the
+    vector kernels take (8x8 in one tile: the launches' fixed cost), and K3
+    on a constant frame (every lane of a warp on one shared-memory counter).
+    Every timed launch's result must equal the plain version's. With
+    `sweep`, also K3 at other slab counts and K4 at other rows a block
+    (0: the general kernels), on the rendered frame."""
+    import torch
+
+    from lvislam_tpu_torch.ops import _kernels, clahe
+    from lvislam_tpu_torch.ops import image as imops
+
+    lib = _kernels.library()
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+
+    def k3(imgs, tiles, slabs):
+        H, W = imgs[0].shape
+        hist = torch.empty((tiles * tiles, 256), device=dev)
+        us = graph_us(lambda i, s: _kernels.check(lib.lvt_clahe_hist(
+            imgs[i % len(imgs)].data_ptr(), hist.data_ptr(), H, W, tiles, 256, slabs, s),
+            "lvt_clahe_hist"))
+        if not torch.equal(hist, clahe.tile_hist_plain(imgs[0], tiles)):
+            raise AssertionError(f"K3 slabs={slabs} on {H}x{W}: counts differ")
+        return us, nbytes((imgs[0], hist)), 3 * H * W
+
+    def k4(imgs, tiles, rows):
+        H, W = imgs[0].shape
+        cdf = imops.clip_cdf(clahe.tile_hist_plain(imgs[0], tiles), (H // tiles) * (W // tiles))
+        res = torch.empty_like(imgs[0])
+        us = graph_us(lambda i, s: _kernels.check(lib.lvt_clahe_apply(
+            imgs[i % len(imgs)].data_ptr(), cdf.data_ptr(), res.data_ptr(), H, W, tiles, 256,
+            rows, s), "lvt_clahe_apply"))
+        if not torch.equal(res, clahe.apply_cdf_plain(imgs[0], cdf, tiles)):
+            raise AssertionError(f"K4 rows={rows} on {H}x{W}: pixels differ")
+        return us, nbytes((imgs[0], cdf, res)), 12 * H * W
+
     img0 = torch.as_tensor(frame, device=dev)
     H, W = img0.shape
     imgs = [c[0] for c in cold_copies([img0], H * W * 4)]
-    hist = torch.empty((64, 256), device=dev)
-    cdf = imops.clip_cdf(clahe.tile_hist_plain(img0), (H // 8) * (W // 8))
-    res = torch.empty_like(img0)
-    report("K3", graph_us(lambda i, s: _kernels.check(lib.lvt_clahe_hist(
-        imgs[i % len(imgs)].data_ptr(), hist.data_ptr(), H, W, 8, 256, s), "lvt_clahe_hist")),
-        nbytes((img0, hist)), 3 * H * W, f"{H}x{W}")
-    report("K4", graph_us(lambda i, s: _kernels.check(lib.lvt_clahe_apply(
-        imgs[i % len(imgs)].data_ptr(), cdf.data_ptr(), res.data_ptr(), H, W, 8, 256, s),
-        "lvt_clahe_apply")), nbytes((img0, cdf, res)), 12 * H * W, f"{H}x{W}")
-    return rec
+    slabs = clahe.hist_slabs(H // 8, 8, n_sm)
+    flat = [torch.full_like(img0, 0.5)] * 2
+    tiny = [torch.rand((8, 8), device=dev)] * 2
+    report("K3", *k3(imgs, 8, slabs), f"{H}x{W},slabs={slabs}")
+    report("K3_constant", *k3(flat, 8, slabs), f"{H}x{W},slabs={slabs}")
+    report("K3_floor", *k3(tiny, 1, clahe.hist_slabs(8, 1, n_sm)), "8x8,tiles=1")
+    report("K4", *k4(imgs, 8, clahe.APPLY_ROWS), f"{H}x{W},rows={clahe.APPLY_ROWS}")
+    report("K4_floor", *k4(tiny, 1, clahe.APPLY_ROWS), "8x8,tiles=1")
+    if not sweep:
+        return
+    for n in (0, 1, 2, 4, 8):
+        report(f"K3_slabs{n}", *k3(imgs, 8, n), f"{H}x{W}")
+    for rows in (0, 9, 12, 16, 18, 24, 32, 36):
+        report(f"K4_rows{rows}", *k4(imgs, 8, rows), f"{H}x{W}")
 
 
 def tracker_frames():
@@ -661,8 +709,10 @@ def depth_metrics(outs, depths, ts, world, traj):
 
 
 def check_clahe_kernels(frame, dev):
-    """K3 and K4 against their plain versions on a rendered frame and a
-    uniform-random image at the rig's 576x1024."""
+    """K3 and K4 against their plain versions, bit for bit: on a rendered
+    frame and a uniform-random image at the rig's 576x1024 (the vector
+    kernels), and on the rendered frame cropped to 571x1021 (the general
+    kernels)."""
     import numpy as np
     import torch
 
@@ -671,7 +721,8 @@ def check_clahe_kernels(frame, dev):
 
     rng = np.random.default_rng(0)
     imgs = {"rendered": torch.as_tensor(frame, device=dev),
-            "uniform": torch.as_tensor(rng.random(frame.shape, dtype=np.float32), device=dev)}
+            "uniform": torch.as_tensor(rng.random(frame.shape, dtype=np.float32), device=dev),
+            "cropped": torch.as_tensor(frame[:-5, :-3].copy(), device=dev)}
     res = {}
     for name, img in imgs.items():
         H, W = img.shape
@@ -681,22 +732,27 @@ def check_clahe_kernels(frame, dev):
         o1 = clahe.apply_cdf(img, cdf)
         o0 = clahe.apply_cdf_plain(img, cdf)
         torch.cuda.synchronize()
+        paths = (clahe.hist_path(H, W, 8, img.data_ptr()),
+                 clahe.apply_path(H, W, 8, 256, img.data_ptr(), cdf.data_ptr()))
+        if paths != (("general",) * 2 if name == "cropped" else ("vector",) * 2):
+            raise AssertionError(f"K3/K4 {name}: {H}x{W} took the {paths} kernels")
         if not torch.equal(h1, h0):
             raise AssertionError(f"K3 {name}: counts differ in "
                                  f"{int((h1 != h0).sum())} of {h1.numel()} bins")
         if int(h1.sum()) != (H // 8) * (W // 8) * 64:
             raise AssertionError(f"K3 {name}: {int(h1.sum())} pixels counted")
-        e3 = float((h1 - h0).abs().max())
-        e4 = float((o1 - o0).abs().max())
-        if not e4 <= 1e-6:
-            raise AssertionError(f"K4 {name}: max abs err {e4} > 1e-6")
+        if not torch.equal(o1, o0):
+            raise AssertionError(f"K4 {name}: {int((o1 != o0).sum())} of {o1.numel()} pixels "
+                                 f"differ (max {float((o1 - o0).abs().max()):.3e})")
         t = {"K3": cuda_ms(lambda: clahe.tile_hist(img)),
              "K3_plain": cuda_ms(lambda: clahe.tile_hist_plain(img)),
              "K4": cuda_ms(lambda: clahe.apply_cdf(img, cdf)),
              "K4_plain": cuda_ms(lambda: clahe.apply_cdf_plain(img, cdf))}
-        log("parity", kernels="K3,K4", image=f"{name}:{H}x{W}", K3_counts="identical",
-            K4_max_abs_err=e4, **{f"{k}_ms": round(v, 4) for k, v in t.items()})
-        res[name] = (e3, e4, t)
+        log("parity", kernels="K3,K4", image=f"{name}:{H}x{W}", path=paths[0],
+            K3_counts="identical", K4_pixels="identical",
+            K3_sha256=sha256(h1.cpu().numpy()), K4_sha256=sha256(o1.cpu().numpy()),
+            **{f"{k}_ms": round(v, 4) for k, v in t.items()})
+        res[name] = (float((h1 - h0).abs().max()), float((o1 - o0).abs().max()), t)
     return res
 
 
@@ -775,6 +831,12 @@ def profile_tracker(frames, ts, cam, dev, n_prof: int):
     for key, us, cnt in sorted(rows, key=lambda r: -r[1])[:10]:
         print(f"  {us / n_prof / 1e3:8.4f} ms/frame  {cnt / n_prof:7.1f}/frame  {key[:90]}",
               flush=True)
+    for kernel, name in (("K3", "clahe_hist"), ("K4", "clahe_apply")):
+        us = sum(r[1] for r in rows if name in r[0])
+        cnt = sum(r[2] for r in rows if name in r[0])
+        log("profile", kernel=kernel, launches_per_frame=round(cnt / n_prof, 2),
+            device_us_per_launch=round(us / max(cnt, 1), 2),
+            device_ms_per_frame=round(us / n_prof / 1e3, 4))
 
 
 def main() -> int:
@@ -933,7 +995,7 @@ def main() -> int:
     # ---- 8. each kernel alone: device time per launch against its bound ----
     alone = kernel_alone([knn_set(h_c, q_c), knn_set(h_s, q_s)],
                          [gn_blocks(h_c, corner, q_c, x6), gn_blocks(h_s, surf, q_s, x6)],
-                         gn_pose(x6), frames[0], dev)
+                         gn_pose(x6), frames[0], dev, sweep="--sweep" in sys.argv)
 
     def timing(key):
         a = alone[key]

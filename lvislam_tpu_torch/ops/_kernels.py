@@ -41,10 +41,10 @@ _SIGNATURES = {
     "lvt_knn_tail_pair": [_P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     # c_pts, c_nbr, Nc, s_pts, s_nbr, Ns, par, rows, ticket, out, stream
     "lvt_gn_partials_pair": [_P, _P, _I, _P, _P, _I, _P, _P, _P, _P, _P],
-    # img, hist, H, W, tiles, n_bins, stream
-    "lvt_clahe_hist": [_P, _P, _I, _I, _I, _I, _P],
-    # img, cdf, out, H, W, tiles, n_bins, stream
-    "lvt_clahe_apply": [_P, _P, _P, _I, _I, _I, _I, _P],
+    # img, hist, H, W, tiles, n_bins, slabs, stream
+    "lvt_clahe_hist": [_P, _P, _I, _I, _I, _I, _I, _P],
+    # img, cdf, out, H, W, tiles, n_bins, rows, stream
+    "lvt_clahe_apply": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
 }
 
 

@@ -14,23 +14,36 @@ Replace the TPU kernels of ``lvislam_tpu/ops/pallas_clahe.py``:
   the field the TPU kernel's separable 3-row form computes, without its
   (tiles, n_bins, W) x-pass table.
 
-CUDA design (``csrc/clahe.cu``):
+CUDA design (``csrc/clahe.cu``). Both kernels move so few bytes (2.4 and
+4.8 MB at 576x1024: 0.7 and 1.4 us at the H100's memory rate) that a
+launch's fixed cost and the latency of a dependent chain of loads bound
+them, not the bytes. So both fill the card with blocks and have each thread
+start all its 16-byte loads before it waits on any:
 
-- K3: one block per tile; each warp counts into its own ``n_bins``
-  histogram in shared memory with integer ``atomicAdd``, and the block sums
-  the warp histograms in a fixed order and writes each bin once. Integer
-  counts are the same in any order, so the result repeats bit for bit and
-  equals ``torch.bincount``. Bound: one read of the image (2.4 MB at
-  576x1024) by only tiles² blocks.
-- K4: one thread per pixel column, 8 rows a block; the block stages the
-  CDF rows of the (at most 3 x 4 at 576x1024) tiles its pixels touch in
-  shared memory, then gathers 4 values a pixel from there. Every multiply
+- K3: a tile is cut into ``hist_slabs`` bands of rows, one block each
+  (about two blocks an SM); each warp counts into its own ``n_bins`` ints of
+  shared memory with integer ``atomicAdd``; the tile's blocks are one
+  thread block cluster, which sums their counts through distributed shared
+  memory in the same launch and writes each f32 bin once. Integer counts
+  are the same in any order, so the result repeats bit for bit and equals
+  ``torch.bincount``.
+- K4: blocks are cut along the interpolation lattice (``axis_blocks``): all
+  pixels of one block blend the same 2 x 2 tiles, whose CDFs are the
+  block's window, brought into shared memory by bulk copies that run while
+  the pixel loads are in flight. A thread owns 4 neighbouring columns and walks ``APPLY_ROWS`` rows at most. Every multiply
   and add is rounded on its own (``__fmul_rn`` / ``__fadd_rn``), in the
   plain version's order, so kernel and plain version agree bit for bit.
-  Bound: one read of the image and one write of the result.
+
+A shape or a base address that the vector kernels do not take
+(``hist_path``, ``apply_path``) goes to the general kernels: one block a
+tile with scalar loads for K3, one thread a column with a window of up to
+4 x 5 tiles for K4. The rule is decided on sizes and alignment before the
+launch; nothing falls back after one.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -40,6 +53,8 @@ HIST_LAUNCHES = 0  # K3 launches since the last reset (chip_smoke reads it)
 APPLY_LAUNCHES = 0  # K4 launches since the last reset
 
 _MAX_BINS = 4096
+APPLY_ROWS = 24  # K4's rows a block at most (a lattice cell of fewer rows is one block)
+_MAX_SLABS = 8  # K3's bands a tile at most: the portable cluster size
 
 
 def _bins(x: torch.Tensor, n_bins: int) -> torch.Tensor:
@@ -74,6 +89,32 @@ def tile_hist_plain(img: torch.Tensor, tiles: int = 8, n_bins: int = 256) -> tor
     return counts.reshape(tiles * tiles, n_bins).to(torch.float32)
 
 
+def hist_path(H: int, W: int, tiles: int, img_ptr: int) -> str:
+    """Which K3 kernel takes an (H, W) image at address `img_ptr`: "vector"
+    (16-byte loads: every tile row starts on a 16-byte boundary) or
+    "general"."""
+    if W % 4 == 0 and (W // tiles) % 4 == 0 and img_ptr % 16 == 0:
+        return "vector"
+    return "general"
+
+
+def hist_slabs(th: int, tiles: int, n_sm: int) -> int:
+    """Bands of rows a tile of `th` rows is cut into, one block each: the
+    smallest power of two that gives the card three blocks for every two
+    SMs, at most `_MAX_SLABS` and at most `th` (no band is empty). At
+    576x1024 in 8x8 tiles on 132 SMs that is 4 (256 blocks of 18 rows),
+    which measured faster than 2 and than 8."""
+    s = 1
+    while 2 * tiles * tiles * s < 3 * n_sm and 2 * s <= min(_MAX_SLABS, th):
+        s *= 2
+    return s
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def tile_hist(img: torch.Tensor, tiles: int = 8, n_bins: int = 256) -> torch.Tensor:
     """Per-tile histograms of the (H, W) f32 image in [0, 1]. Returns
     (tiles*tiles, n_bins) f32, tile row-major. A CPU tensor takes the plain
@@ -87,9 +128,13 @@ def tile_hist(img: torch.Tensor, tiles: int = 8, n_bins: int = 256) -> torch.Ten
     img = img.contiguous()
     H, W = img.shape
     hist = torch.empty((tiles * tiles, n_bins), dtype=torch.float32, device=img.device)
+    slabs = 0  # the general kernel
+    if hist_path(H, W, tiles, img.data_ptr()) == "vector":
+        slabs = hist_slabs(H // tiles, tiles, _sm_count(img.device.index))
     lib = _kernels.library()
     stream = torch.cuda.current_stream(img.device).cuda_stream
-    err = lib.lvt_clahe_hist(img.data_ptr(), hist.data_ptr(), H, W, tiles, n_bins, stream)
+    err = lib.lvt_clahe_hist(img.data_ptr(), hist.data_ptr(), H, W, tiles, n_bins, slabs,
+                             stream)
     _kernels.check(err, "lvt_clahe_hist")
     HIST_LAUNCHES += 1
     return hist
@@ -133,6 +178,37 @@ def apply_cdf_plain(img: torch.Tensor, cdf: torch.Tensor, tiles: int = 8) -> tor
     return wx0[None, :] * a0 + wx1[None, :] * a1
 
 
+def apply_path(H: int, W: int, tiles: int, n_bins: int, *ptrs: int) -> str:
+    """Which K4 kernel takes an (H, W) image with tensors at addresses
+    `ptrs` (image, CDFs, result): "vector" (16-byte loads and stores; every
+    lattice cell starts on a multiple of 4 columns, which half a tile of
+    tw % 8 == 0 columns does; CDF rows of whole 16 bytes for the window's
+    bulk copies) or "general"."""
+    if (W % 4 == 0 and (W // tiles) % 8 == 0 and n_bins % 4 == 0
+            and all(p % 16 == 0 for p in ptrs)):
+        return "vector"
+    return "general"
+
+
+@functools.lru_cache(maxsize=None)
+def axis_blocks(n: int, tiles: int, size: int) -> tuple:
+    """The vector K4's blocks along an axis of `n` pixels in `tiles` tiles:
+    (lo, hi) pixel ranges, in block order. The axis is first cut into the
+    interpolation lattice's cells (between two neighbouring tile centres
+    every pixel has the same two taps: [0, half), then tiles-1 cells of one
+    tile's span, then the rest, with half = span // 2 the first pixel whose
+    ``lerp_mat`` coordinate is not negative), then each cell into blocks of
+    `size` pixels. This is the host's model of the partition, for the
+    tests: the kernel finds its ranges from the block index
+    (``csrc/clahe.cu:axis_block``), along x in blocks of a tile's width
+    rounded up to a power of two, 256 columns at most."""
+    span = n // tiles
+    half = span // 2
+    edges = [0] + [half + c * span for c in range(tiles)] + [n]
+    return tuple((lo, min(lo + size, end)) for start, end in zip(edges[:-1], edges[1:])
+                 for lo in range(start, end, size))
+
+
 def apply_cdf(img: torch.Tensor, cdf: torch.Tensor, tiles: int = 8) -> torch.Tensor:
     """Bilinear tile-CDF application. img (H, W) f32 in [0, 1]; cdf
     (tiles*tiles, n_bins) f32, tile row-major. Returns (H, W) f32. A CPU
@@ -152,10 +228,14 @@ def apply_cdf(img: torch.Tensor, cdf: torch.Tensor, tiles: int = 8) -> torch.Ten
     img, cdf = img.contiguous(), cdf.contiguous()
     H, W = img.shape
     out = torch.empty((H, W), dtype=torch.float32, device=img.device)
+    rows = 0  # the general kernel
+    if apply_path(H, W, tiles, n_bins, img.data_ptr(), cdf.data_ptr(),
+                  out.data_ptr()) == "vector":
+        rows = APPLY_ROWS
     lib = _kernels.library()
     stream = torch.cuda.current_stream(img.device).cuda_stream
     err = lib.lvt_clahe_apply(img.data_ptr(), cdf.data_ptr(), out.data_ptr(),
-                              H, W, tiles, n_bins, stream)
+                              H, W, tiles, n_bins, rows, stream)
     _kernels.check(err, "lvt_clahe_apply")
     APPLY_LAUNCHES += 1
     return out

@@ -14,9 +14,10 @@ torch.sum, then the add). K2 is checked on neighbourhoods from the
 synthetic world, as the step sees them. On random thin planes the
 f32 plane fit is ill-conditioned, and rounding alone moves the sums past
 2e-4 of scale: on such cases the TPU kernel in interpret mode differs from
-the JAX XLA path by up to 8e-3 of scale. K3's counts identical; K4 within
-1e-6 (every op rounded on its own in the plain version's order, so
-measured equal), at the rig's 576x1024 and at ragged shapes."""
+the JAX XLA path by up to 8e-3 of scale. K3's counts and K4's pixels
+identical (K4 rounds every op on its own in the plain version's order), at
+the rig's 576x1024, at shapes that take each branch of the vector kernels
+and at shapes that take the general ones."""
 
 import os
 
@@ -160,13 +161,27 @@ def test_wrappers_refuse_bad_inputs_on_the_card(cuda):
                              torch.zeros(39, device=cuda))
 
 
-@pytest.mark.parametrize("H,W,tiles,n_bins", [(576, 1024, 8, 256), (240, 320, 8, 256),
-                                              (100, 150, 8, 256), (37, 61, 8, 256),
-                                              (576, 1024, 4, 1024)])
-def test_clahe_kernels_match_plain(cuda, H, W, tiles, n_bins):
+def _clahe_image(cuda, H, W):
     rng = np.random.default_rng(H + W)
     img = torch.as_tensor(rng.random((H, W), dtype=np.float32) ** 2, device=cuda)
     img[0, :4] = torch.tensor([-0.5, 0.0, 1.0, 1.5])  # out-of-range values clamp
+    return img
+
+
+@pytest.mark.parametrize("H,W,tiles,n_bins", [
+    (576, 1024, 8, 256), (240, 320, 8, 256),
+    (100, 150, 8, 256), (37, 61, 8, 256),  # the general kernels
+    (576, 1024, 4, 1024),  # 8 slabs of 18 rows; 4 KB a warp histogram
+    (584, 1024, 8, 256),   # th = 73: slabs of 18, 18, 18 and 19 rows
+    (580, 1028, 8, 256),   # spare rows and 4 spare columns in the last lattice cells
+    (64, 96, 8, 256),      # tw = 12: the vector K3 with the general K4
+    (16, 64, 8, 256),      # th = 2: two slabs of one row
+    (8, 8, 1, 256),        # one tile, the smallest vector shape
+    (96, 256, 4, 4096),    # 3 warps a block in K3; K4's window over 48 KB
+    (90, 2304, 2, 64),     # a lattice cell wider than a block's 256 columns
+])
+def test_clahe_kernels_match_plain(cuda, H, W, tiles, n_bins):
+    img = _clahe_image(cuda, H, W)
     n3, n4 = clahe.HIST_LAUNCHES, clahe.APPLY_LAUNCHES
     h1 = clahe.tile_hist(img, tiles, n_bins)
     h0 = clahe.tile_hist_plain(img, tiles, n_bins)
@@ -176,7 +191,79 @@ def test_clahe_kernels_match_plain(cuda, H, W, tiles, n_bins):
     torch.cuda.synchronize()
     assert (clahe.HIST_LAUNCHES, clahe.APPLY_LAUNCHES) == (n3 + 1, n4 + 1)
     assert torch.equal(h1, h0)
-    assert float((o1 - o0).abs().max()) <= 1e-6
+    assert torch.equal(o1, o0)
+
+
+@pytest.mark.parametrize("view", ["four_bytes_off", "strided", "cdf_eight_bytes_off"])
+def test_clahe_kernels_on_views(cuda, view):
+    """A contiguous view off the 16-byte grid takes the general kernels by
+    the path rule; a strided view is copied, and the copy is aligned."""
+    H, W = 144, 256
+    img = _clahe_image(cuda, H, 2 * W)
+    if view == "four_bytes_off":
+        img = torch.cat([img.reshape(-1)[:1], img[:, :W].reshape(-1)])[1:].view(H, W)
+        assert img.is_contiguous() and img.data_ptr() % 16 == 4
+        assert clahe.hist_path(H, W, 8, img.data_ptr()) == "general"
+    elif view == "strided":
+        img = img[:, ::2]
+        assert not img.is_contiguous()
+    else:
+        img = img[:, :W].contiguous()
+    h0 = clahe.tile_hist_plain(img)
+    cdf = imops.clip_cdf(h0, (H // 8) * (W // 8))
+    if view == "cdf_eight_bytes_off":
+        cdf = torch.cat([cdf.reshape(-1)[:2], cdf.reshape(-1)])[2:].view(64, 256)
+        assert clahe.apply_path(H, W, 8, 256, img.data_ptr(), cdf.data_ptr()) == "general"
+    assert torch.equal(clahe.tile_hist(img), h0)
+    assert torch.equal(clahe.apply_cdf(img, cdf), clahe.apply_cdf_plain(img, cdf))
+
+
+def test_clahe_kernels_back_to_back_and_in_a_cuda_graph(cuda):
+    """Two CLAHE passes one after the other on one stream, then the same
+    pair captured in a CUDA graph and replayed twice on new pixels."""
+    H, W = 576, 1024
+    a, b = _clahe_image(cuda, H, W), _clahe_image(cuda, H, W).flip(0).contiguous()
+    ref = [imops.clahe(x, use_kernels=False) for x in (a, b)]
+    assert all(torch.equal(imops.clahe(x), r) for x, r in zip((a, b), ref))
+    buf = a.clone()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        imops.clahe(buf)  # builds and warms the kernels outside the capture
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        out = imops.clahe(buf)
+    for x, r in ((b, ref[1]), (a, ref[0])):
+        buf.copy_(x)
+        g.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, r)
+
+
+@pytest.mark.parametrize("H,W,tiles", [(576, 1024, 8), (148, 288, 4)])
+def test_clahe_kernels_at_every_launch_size(cuda, H, W, tiles):
+    """The raw entry points at slab counts and rows a block other than the
+    wrappers' own choice, each twice into a result filled with -1."""
+    from lvislam_tpu_torch.ops import _kernels
+
+    lib = _kernels.library()
+    stream = torch.cuda.current_stream().cuda_stream
+    img = _clahe_image(cuda, H, W)
+    h0 = clahe.tile_hist_plain(img, tiles)
+    cdf = imops.clip_cdf(h0, (H // tiles) * (W // tiles))
+    o0 = clahe.apply_cdf_plain(img, cdf, tiles)
+    for slabs in (0, 1, 2, 3, 4, 8):
+        for _ in range(2):
+            hist = torch.full((tiles * tiles, 256), -1.0, device=cuda)
+            _kernels.check(lib.lvt_clahe_hist(img.data_ptr(), hist.data_ptr(), H, W, tiles, 256,
+                                              slabs, stream), "lvt_clahe_hist")
+            assert torch.equal(hist, h0), slabs
+    for rows in (0, 1, 5, 12, 24, 37, 64):
+        out = torch.full_like(img, -1.0)
+        _kernels.check(lib.lvt_clahe_apply(img.data_ptr(), cdf.data_ptr(), out.data_ptr(),
+                                           H, W, tiles, 256, rows, stream), "lvt_clahe_apply")
+        assert torch.equal(out, o0), rows
 
 
 def test_clahe_on_the_card_equals_the_cpu(cuda):
@@ -189,9 +276,30 @@ def test_clahe_on_the_card_equals_the_cpu(cuda):
 
 
 def test_clahe_wrappers_refuse_bad_inputs_on_the_card(cuda):
+    n = (clahe.HIST_LAUNCHES, clahe.APPLY_LAUNCHES)
     with pytest.raises(TypeError):
         clahe.tile_hist(torch.zeros((64, 64), dtype=torch.float64, device=cuda))
     with pytest.raises(ValueError):
         clahe.tile_hist(torch.zeros((4, 64), device=cuda))
     with pytest.raises(ValueError):
         clahe.apply_cdf(torch.zeros((64, 64), device=cuda), torch.zeros((63, 256), device=cuda))
+    with pytest.raises(ValueError):
+        clahe.apply_cdf(torch.zeros((64, 64), device=cuda), torch.zeros((64, 256)))
+    assert (clahe.HIST_LAUNCHES, clahe.APPLY_LAUNCHES) == n  # refused before any launch
+    # the entry points refuse a vector launch the path rule would not make:
+    # too many rows a block or slabs a tile, W % 4, a misaligned image
+    from lvislam_tpu_torch.ops import _kernels
+
+    lib = _kernels.library()
+    stream = torch.cuda.current_stream().cuda_stream
+    H, W = 144, 256
+    img = torch.zeros(H * W + 4, device=cuda)
+    hist, cdf, out = (torch.zeros(s, device=cuda) for s in ((64, 256), (64, 256), (H, W)))
+    p, off = img.data_ptr(), img[1:].data_ptr()
+    assert lib.lvt_clahe_apply(p, cdf.data_ptr(), out.data_ptr(), H, W, 8, 256, 65, stream) != 0
+    assert lib.lvt_clahe_apply(off, cdf.data_ptr(), out.data_ptr(), H, W, 8, 256, 24, stream) != 0
+    assert lib.lvt_clahe_apply(p, cdf.data_ptr(), out.data_ptr(), H, W - 2, 8, 256, 24, stream) != 0
+    assert lib.lvt_clahe_hist(p, hist.data_ptr(), H, W, 8, 256, 9, stream) != 0
+    assert lib.lvt_clahe_hist(off, hist.data_ptr(), H, W, 8, 256, 4, stream) != 0
+    assert lib.lvt_clahe_hist(p, hist.data_ptr(), H, W - 2, 8, 256, 4, stream) != 0
+    torch.cuda.synchronize()
