@@ -45,14 +45,49 @@ Phases, one line each:
    (one point a class), K3 and K4 (an 8x8 image in one tile); K3 also on a
    constant frame.
 
+9. IMU side: (a) ``navstate_predict`` over 60 s x 200 Hz of the figure-8's
+   ideal IMU stream against ``navstate_predict_seq`` (the JAX parity test's
+   tolerances at its 64-sample length; stated bounds over all 12000
+   samples) and against the float64 ``navstate_predict_np``; (b) the
+   two-state smoother over the LIO replay of phase 3: ``fusion_initialize``
+   on the first pose, one ``fusion_correct`` a scan with biased, noisy IMU
+   samples and the replay's own pose as the correction. Gates: never failed,
+   the gyro bias within 0.6 of the injected one's norm, the fused position
+   within 0.1 m of the last correction. ms, device kernels and host syncs a
+   correction; (c) ``predict_imu_rate`` over 5 s against the truth.
+10. VIO at the fixture's size (320x240, 64 features, window 10, 128 slots, 4
+   iterations, CLAHE off): 5 s of rendered frames (8-bit) and 200 Hz IMU on
+   the figure-8 (scale 1.5, period 8 s) through ``VioRunner``, once for
+   every entry of ``VIO_SEEDS``, which sets the RANSAC draws: 0 the port's
+   own default, as a plain ``VioRunner(cfg)`` draws; s > 0 a host generator
+   seeded s, so the card draws what a CPU run draws. On this short stream
+   the visual bootstrap gets a handful of attempts, and which of them passes
+   hangs on the draws, in the JAX package as here: so the gate is a count. A
+   run is "ok" when it ends initialized with no failure, a full window and
+   an ATE under 0.5 m after rigid alignment; the phase needs as many "ok"
+   runs as the JAX CPU runs of the same stream had over the same seeds
+   (``lvislam_tpu_torch/utils/anchors.py``), less one, and one at least.
+   Every run's outcome is printed beside JAX's; a run that ends initialized
+   and unflagged with a larger ATE is named "misinitialized". The first "ok"
+   run is repeated and must come out bit-identical.
+11. VIO at full width: the EuRoC cam0 size (752x480 pinhole, no distortion),
+   150 features, CLAHE on, 256 slots, 6 iterations; K3 and K4 held against
+   their plain versions at this shape and timed alone against its bound
+   first. The same gate; of the first "ok" run: ms a frame split into
+   tracker / process_imu / process_image, BA iterations and host syncs a
+   frame, K3/K4 launches (one a frame) and the kernels they took.
+12. BA alone: ``ba.solve`` with "qr", "cholesky" and "schur" on the exact
+   synthetic window at the reference shape (window 10, 150 features); the
+   three must agree; ms a solve by CUDA events.
+
 Then one JSON line of kernel records, and last the result line
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero.
 There is no CPU path: without a GPU the script fails.
 
 ``python3 chip_smoke.py --profile N`` adds torch.profiler traces of N
-steady scans and N steady tracker frames (device busy share, device time
-by kernel; K1-K4's launches and device time a scan or frame) before the
-result. ``--sweep`` adds to phase 8 the launch sizes beside the wrappers'
+steady scans, N steady tracker frames and the last N frames of each VIO run
+(device busy share, device time by kernel; K1-K4's launches and device time
+a scan or frame) before the result. ``--sweep`` adds to phase 8 the launch sizes beside the wrappers'
 own: K3 at 1 to 8 slabs a tile, K4 at 9 to 36 rows a block, and both general
 kernels.
 """
@@ -86,9 +121,36 @@ L2_BYTES = 50e6  # phase 8 rotates inputs through twice this
 # (transform, gate, mean, scatter, eigensystem, 1 or 2 eigenvectors, plane
 # or line coefficients, J row, 27 partials, the block tree)
 K2_FLOPS_PER_POINT = {"corner": 450, "surf": 600}
+# phases 9-12: the IMU side and the VIO estimator
+IMU_SECONDS, IMU_HZ = 60.0, 200  # the dead-reckoning stream
+DR_TEST_TOL = {"pos": 2e-4, "quat": 2e-6, "vel": 2e-4}  # the JAX parity test's, 64 samples
+DR_SEQ_TOL = {"pos": 2e-2, "quat": 1e-5, "vel": 1e-3}  # 12000 samples, f32 sequential
+DR_F64_TOL = {"pos": 2e-3, "quat": 1e-6, "vel": 1e-4}  # 12000 samples, float64
+TRUE_BG, TRUE_BA = (0.02, -0.01, 0.015), (0.05, 0.08, -0.06)  # injected IMU biases
+FUSION_SAMPLES = 24  # IMU samples a correction (200 Hz / 10 Hz = 20, padded)
+VIO_SECONDS, VIO_ATE_LIMIT_M = 5.0, 0.5
+# The RANSAC draws of the VIO phases' runs: every entry is run and none is
+# picked. 0 stands for the port's own default draws, as a plain
+# `VioRunner(cfg)` makes them (a generator on the card, seeded 0 at each
+# call); s > 0 for a host generator seeded s (the card then draws what a CPU
+# run draws). Each is printed beside the JAX CPU run of the same number
+# (0: the JAX package's default key; s: s folded into it). The phase needs
+# as many runs that meet the gates as JAX had over the same numbers, less
+# VIO_OK_SLACK: one run's outcome is chance (the card does not follow a CPU
+# run of the same seed: one rounding moves an 8-point model), so equal rates
+# can differ by one. Three entries: a run takes 35-60 s of the script's time.
+VIO_SEEDS = (0, 1, 2)
+VIO_OK_SLACK = 1
+BA_WINDOW, BA_FEATURES = 10, 150
+BA_REFERENCE_BUDGET = "35ms/10iterations"  # the reference estimator's solver budget
+
+
+T_START = time.perf_counter()
 
 
 def log(phase: str, **kw):
+    """One line a result; `t` is the seconds since the script started."""
+    kw["t"] = round(time.perf_counter() - T_START, 1)
     print(f"[{phase}] " + " ".join(f"{k}={v}" for k, v in kw.items()), flush=True)
 
 
@@ -463,6 +525,18 @@ def profile_steady(cfg, scans, dev, n_prof: int):
             device_ms_per_scan=round(us / n_prof / 1e3, 4))
 
 
+def alone_reporter(rec: dict):
+    """`report(name, µs, bytes, operations, shape)`: holds a kernel-alone
+    time against its bound, logs the line and files the record in `rec`."""
+    def report(name, us, n_bytes, n_flops, shape):
+        b, by = bound_us(n_bytes, n_flops)
+        rec[name] = {"kernel_us": us, "bound_us": b, "bound_by": by, "bound_share": b / us,
+                     "library_ms": None}
+        log("alone", kernel=name, shape=shape, kernel_us=round(us, 3), bound_us=round(b, 4),
+            bound_by=by, bound_share=round(b / us, 4), MB=round(n_bytes / 1e6, 3))
+    return report
+
+
 def kernel_alone(sets, blocks, par, frame, dev, sweep: bool = False):
     """Phase 8: each kernel's raw entry point alone, CUDA-graph timed at the
     main path's shapes (K1's two query sets `sets`, K2's two classes'
@@ -475,13 +549,7 @@ def kernel_alone(sets, blocks, par, frame, dev, sweep: bool = False):
 
     lib = _kernels.library()
     rec = {}
-
-    def report(name, us, n_bytes, n_flops, shape):
-        b, by = bound_us(n_bytes, n_flops)
-        rec[name] = {"kernel_us": us, "bound_us": b, "bound_by": by, "bound_share": b / us,
-                     "library_ms": None}
-        log("alone", kernel=name, shape=shape, kernel_us=round(us, 3), bound_us=round(b, 4),
-            bound_by=by, bound_share=round(b / us, 4), MB=round(n_bytes / 1e6, 3))
+    report = alone_reporter(rec)
 
     # ---- K1: the pair launch, each query set alone, and one query (the
     # launch's latency floor) ----
@@ -555,14 +623,16 @@ def kernel_alone(sets, blocks, par, frame, dev, sweep: bool = False):
     return rec
 
 
-def clahe_alone(frame, dev, report, sweep: bool):
+def clahe_alone(frame, dev, report, sweep: bool, tag: str = ""):
     """Phase 8 for K3 and K4: the raw entry points on the rendered `frame`
-    as the wrappers launch them (cold in L2), on the smallest image the
-    vector kernels take (8x8 in one tile: the launches' fixed cost), and K3
-    on a constant frame (every lane of a warp on one shared-memory counter).
-    Every timed launch's result must equal the plain version's. With
-    `sweep`, also K3 at other slab counts and K4 at other rows a block
-    (0: the general kernels), on the rendered frame."""
+    with the kernel and launch size the wrappers pick at its shape (cold in
+    L2), on the smallest image the vector kernels take (8x8 in one tile: the
+    launches' fixed cost), and K3 on a constant frame (every lane of a warp
+    on one shared-memory counter). Every timed launch's result must equal
+    the plain version's. With `sweep`, also K3 at other slab counts and K4
+    at other rows a block (0: the general kernels), on the rendered frame.
+    With a `tag` (a second shape of the main paths) only the frame's own two
+    records, named K3<tag> and K4<tag>."""
     import torch
 
     from lvislam_tpu_torch.ops import _kernels, clahe
@@ -595,13 +665,20 @@ def clahe_alone(frame, dev, report, sweep: bool):
     img0 = torch.as_tensor(frame, device=dev)
     H, W = img0.shape
     imgs = [c[0] for c in cold_copies([img0], H * W * 4)]
-    slabs = clahe.hist_slabs(H // 8, 8, n_sm)
+    # 0 slabs / 0 rows: the general kernels, as the wrappers choose
+    ptrs = [i.data_ptr() for i in imgs]
+    vec3 = all(clahe.hist_path(H, W, 8, p) == "vector" for p in ptrs)
+    vec4 = all(clahe.apply_path(H, W, 8, 256, p) == "vector" for p in ptrs)
+    slabs = clahe.hist_slabs(H // 8, 8, n_sm) if vec3 else 0
+    rows = clahe.APPLY_ROWS if vec4 else 0
+    report("K3" + tag, *k3(imgs, 8, slabs), f"{H}x{W},slabs={slabs}")
+    report("K4" + tag, *k4(imgs, 8, rows), f"{H}x{W},rows={rows}")
+    if tag:
+        return
     flat = [torch.full_like(img0, 0.5)] * 2
     tiny = [torch.rand((8, 8), device=dev)] * 2
-    report("K3", *k3(imgs, 8, slabs), f"{H}x{W},slabs={slabs}")
     report("K3_constant", *k3(flat, 8, slabs), f"{H}x{W},slabs={slabs}")
     report("K3_floor", *k3(tiny, 1, clahe.hist_slabs(8, 1, n_sm)), "8x8,tiles=1")
-    report("K4", *k4(imgs, 8, clahe.APPLY_ROWS), f"{H}x{W},rows={clahe.APPLY_ROWS}")
     report("K4_floor", *k4(tiny, 1, clahe.APPLY_ROWS), "8x8,tiles=1")
     if not sweep:
         return
@@ -708,23 +785,31 @@ def depth_metrics(outs, depths, ts, world, traj):
     return len(errs) / max(n_valid, 1), float(np.median(errs))
 
 
-def check_clahe_kernels(frame, dev):
-    """K3 and K4 against their plain versions, bit for bit: on a rendered
-    frame and a uniform-random image at the rig's 576x1024 (the vector
-    kernels), and on the rendered frame cropped to 571x1021 (the general
+def rig_clahe_images(frame):
+    """Phase 5's images as {name: (array, the kernels they must take)}: a
+    rendered frame and a uniform-random image at the rig's 576x1024 (the
+    vector kernels), and the rendered frame cropped to 571x1021 (the general
     kernels)."""
     import numpy as np
+
+    rng = np.random.default_rng(0)
+    return {"rendered": (frame, "vector"),
+            "uniform": (rng.random(frame.shape, dtype=np.float32), "vector"),
+            "cropped": (frame[:-5, :-3].copy(), "general")}
+
+
+def check_clahe_kernels(images, dev):
+    """K3 and K4 against their plain versions, bit for bit, on each of
+    `images` ({name: (array, expected path)}), with CUDA-event timings of
+    both. Returns {name: (K3 max abs err, K4 max abs err, times)}."""
     import torch
 
     from lvislam_tpu_torch.ops import clahe
     from lvislam_tpu_torch.ops import image as imops
 
-    rng = np.random.default_rng(0)
-    imgs = {"rendered": torch.as_tensor(frame, device=dev),
-            "uniform": torch.as_tensor(rng.random(frame.shape, dtype=np.float32), device=dev),
-            "cropped": torch.as_tensor(frame[:-5, :-3].copy(), device=dev)}
     res = {}
-    for name, img in imgs.items():
+    for name, (arr, want) in images.items():
+        img = torch.as_tensor(arr, device=dev)
         H, W = img.shape
         h1 = clahe.tile_hist(img)
         h0 = clahe.tile_hist_plain(img)
@@ -734,8 +819,9 @@ def check_clahe_kernels(frame, dev):
         torch.cuda.synchronize()
         paths = (clahe.hist_path(H, W, 8, img.data_ptr()),
                  clahe.apply_path(H, W, 8, 256, img.data_ptr(), cdf.data_ptr()))
-        if paths != (("general",) * 2 if name == "cropped" else ("vector",) * 2):
-            raise AssertionError(f"K3/K4 {name}: {H}x{W} took the {paths} kernels")
+        if paths != (want, want):
+            raise AssertionError(f"K3/K4 {name}: {H}x{W} took the {paths} kernels, "
+                                 f"not the {want} ones")
         if not torch.equal(h1, h0):
             raise AssertionError(f"K3 {name}: counts differ in "
                                  f"{int((h1 != h0).sum())} of {h1.numel()} bins")
@@ -839,6 +925,549 @@ def profile_tracker(frames, ts, cam, dev, n_prof: int):
             device_ms_per_frame=round(us / n_prof / 1e3, 4))
 
 
+# ---------------------------------------------------------------------------
+# Phases 9-12: the IMU side and the sliding-window VIO estimator
+# ---------------------------------------------------------------------------
+
+def device_kernels(fn, n: int):
+    """(device kernels a call, device ms a call, the five largest kernels) of
+    `n` calls of ``fn(i)`` under torch.profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for i in range(n):
+            fn(i)
+        torch.cuda.synchronize()
+    rows = [(e.key, e.self_device_time_total, e.count) for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
+    top = [(key[:70], round(us / n / 1e3, 4), round(cnt / n, 1))
+           for key, us, cnt in sorted(rows, key=lambda r: -r[1])[:5]]
+    return sum(r[2] for r in rows) / n, sum(r[1] for r in rows) / n / 1e3, top
+
+
+def body_velocity(traj, t):
+    """(3,) float64 velocity of the body in the world at time t, by central
+    differences as the JAX package's tests take it."""
+    import numpy as np
+
+    return (traj.pose(np.array([t + 1e-4]))[0][0] - traj.pose(np.array([t - 1e-4]))[0][0]) / 2e-4
+
+
+def imu_dead_reckoning(dev):
+    """Phase 9a: `navstate_predict` (parallel prefix) over 60 s x 200 Hz of
+    the figure-8's ideal IMU stream against the sequential recursion and the
+    float64 numpy one. Gates: at the 64-sample length of the JAX package's
+    parity test, its tolerances (quat 2e-6, vel and pos 2e-4); over all 12000
+    samples DR_SEQ_TOL against the f32 sequential recursion (12000 dependent
+    f32 steps) and DR_F64_TOL against float64."""
+    import numpy as np
+    import torch
+
+    from lvislam_tpu_torch.ops import preintegration as pre
+    from lvislam_tpu_torch.utils import synthetic as syn
+
+    traj = syn.figure8_trajectory(scale=3.0, period=40.0)
+    n = int(IMU_SECONDS * IMU_HZ)
+    ts = (np.arange(n) + 1) / IMU_HZ
+    gyrs, accs = traj.imu(ts)
+    f32 = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)
+    p0, q0 = body_pose(traj, ts[0])
+    z3 = torch.zeros(3, device=dev)
+    nav0 = pre.NavState(pos=f32(p0), quat=f32(q0), vel=f32(body_velocity(traj, ts[0])), ba=z3, bg=z3)
+    dts = torch.full((n,), float(np.float32(1.0 / IMU_HZ)), device=dev)
+    accs, gyrs = f32(accs), f32(gyrs)
+    G = torch.tensor([0.0, 0.0, -syn.GRAVITY], device=dev)
+
+    def diffs(a, b):
+        return {k: float(np.abs(np.asarray(x, np.float64) - np.asarray(y, np.float64)).max())
+                for k, x, y in zip(("pos", "quat", "vel"), a, b)}
+
+    def check(what, d, tol):
+        over = {k: (d[k], tol[k]) for k in d if not d[k] <= tol[k]}
+        if over:
+            raise AssertionError(f"imu dead reckoning, {what}: beyond tolerance {over}")
+
+    out = {}
+    for m in (64, n):
+        par = pre.navstate_predict(nav0, dts[:m], accs[:m], gyrs[:m], G)
+        t0 = time.perf_counter()
+        seq = pre.navstate_predict_seq(nav0, dts[:m], accs[:m], gyrs[:m], G)
+        par, seq = [[x.cpu().numpy() for x in (s.pos, s.quat, s.vel)] for s in (par, seq)]
+        seq_s = time.perf_counter() - t0
+        f64 = pre.navstate_predict_np(p0, q0, nav0.vel.cpu().numpy(), np.zeros(3), np.zeros(3),
+                                      dts[:m].cpu().numpy(), accs[:m].cpu().numpy(),
+                                      gyrs[:m].cpu().numpy(), G.cpu().numpy())
+        out[m] = (diffs(par, seq), diffs(par, f64), seq_s)
+        check(f"{m} samples, parallel vs sequential", out[m][0],
+              DR_TEST_TOL if m == 64 else DR_SEQ_TOL)
+        check(f"{m} samples, parallel vs float64", out[m][1], DR_F64_TOL)
+    ms = cuda_ms(lambda: pre.navstate_predict(nav0, dts, accs, gyrs, G), reps=20)
+    fmt = lambda d: ",".join(f"{k}:{v:.3g}" for k, v in d.items())
+    log("imu_predict", samples=n, seconds=IMU_SECONDS, vs_seq_64=fmt(out[64][0]),
+        vs_seq=fmt(out[n][0]), vs_f64=fmt(out[n][1]), predict_ms=round(ms, 3),
+        rtf=round(IMU_SECONDS / (ms / 1e3), 1), seq_ms=round(out[n][2] * 1e3, 1))
+    return ms
+
+
+def imu_rate_prediction(dev):
+    """Phase 9c: `predict_imu_rate` over 5 s x 200 Hz from the true start
+    state, as the JAX package's config-1 dead-reckoning test: under 0.5 m
+    from the truth at the end, under 0.15 m over the first half."""
+    import numpy as np
+    import torch
+
+    from lvislam_tpu_torch.models.lio import imu_fusion as fus
+    from lvislam_tpu_torch.utils import synthetic as syn
+
+    traj = syn.figure8_trajectory(scale=3.0, period=30.0)
+    t, w, f = syn.simulate_imu_stream(traj, 0.0, 5.0, rate=200.0)
+    params = fus.FusionParams(imuGravity=syn.GRAVITY)
+    f32 = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)
+    p0, q0 = body_pose(traj, 0.0)
+    st = fus.fusion_init(params, device=dev)._replace(
+        pos=f32(p0), quat=f32(q0), vel=f32(body_velocity(traj, 0.0)),
+        sqrt_info=torch.eye(15, device=dev),
+        initialized=torch.ones((), dtype=torch.bool, device=dev))
+    dts = f32(np.diff(t, prepend=t[0]))
+    t0 = time.perf_counter()
+    ps, qs, vs = fus.predict_imu_rate(st, dts, f32(f), f32(w), params)
+    ps = ps.cpu().numpy()
+    ms = (time.perf_counter() - t0) * 1e3
+    err = np.linalg.norm(ps - traj.pose(t)[0], axis=1)
+    log("imu_rate", samples=len(t), end_err_m=round(float(err[-1]), 6),
+        first_half_max_err_m=round(float(err[: len(err) // 2].max()), 6),
+        ms=round(ms, 1), ms_per_sample=round(ms / len(t), 4))
+    if not (np.isfinite(ps).all() and err[-1] < 0.5 and err[: len(err) // 2].max() < 0.15):
+        raise AssertionError(f"imu rate prediction: {err[-1]:.3f} m from the truth at the end, "
+                             f"{err[: len(err) // 2].max():.3f} m over the first half")
+
+
+def fusion_over_replay(traj6, dev):
+    """Phase 9b: the two-state smoother over the LIO replay. `traj6` (N, 6)
+    is the replay's [roll, pitch, yaw, x, y, z] a scan, scan i at i / RATE s.
+    `fusion_initialize` on the first pose, then one `fusion_correct` a scan
+    with the IMU samples since the scan before (200 Hz, the injected biases
+    and noise of the JAX package's bias test, at its relaxed bias walk) and
+    the replay's own pose as the correction. Gates: never failed; the gyro
+    bias within 0.6 |true| of the injected one; the fused position within
+    0.1 m of the last correction pose."""
+    import numpy as np
+    import torch
+    from scipy.spatial.transform import Rotation as Rsc
+
+    from lvislam_tpu_torch.core import hostsync
+    from lvislam_tpu_torch.models.lio import imu_fusion as fus
+    from lvislam_tpu_torch.utils import synthetic as syn
+
+    traj = syn.figure8_trajectory(scale=3.0, period=40.0)
+    bg, ba = np.array(TRUE_BG), np.array(TRUE_BA)
+    n = traj6.shape[0]
+    t, w, f = syn.simulate_imu_stream(traj, 0.0, n / RATE, rate=200.0, gyro_bias=bg,
+                                      accel_bias=ba, gyro_noise=1e-4, accel_noise=1e-3)
+    params = fus.FusionParams(imuGravity=syn.GRAVITY, imuAccBiasN=2e-2, imuGyrBiasN=5e-3,
+                              priorBiasSigma=0.1)
+    f32 = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)
+    # x6's rotation is Rz(yaw) Ry(pitch) Rx(roll)
+    quats = np.roll(Rsc.from_euler("ZYX", traj6[:, 2::-1].astype(np.float64)).as_quat(), 1, axis=1)
+    pos = traj6[:, 3:6]
+    M = FUSION_SAMPLES
+    steps = []
+    for k in range(1, n):
+        sel = (t > (k - 1) / RATE) & (t <= k / RATE)
+        m = int(sel.sum())
+        if not 0 < m <= M:
+            raise AssertionError(f"fusion: {m} IMU samples before scan {k}")
+        dts, accs, gyrs = np.zeros(M, np.float32), np.zeros((M, 3), np.float32), np.zeros((M, 3), np.float32)
+        dts[:m] = np.diff(t[sel], prepend=(k - 1) / RATE)
+        accs[:m], gyrs[:m] = f[sel], w[sel]
+        accs[m:], gyrs[m:] = accs[m - 1], gyrs[m - 1]
+        steps.append(tuple(f32(a) for a in (dts, accs, gyrs, pos[k], quats[k])))
+    no = torch.zeros((), dtype=torch.bool, device=dev)
+    st = fus.fusion_initialize(fus.fusion_init(params, device=dev), f32(pos[0]), f32(quats[0]), params)
+    failed = no
+    torch.cuda.synchronize()
+    times, syncs = [], []
+    for step in steps:
+        hostsync.reset()
+        t0 = time.perf_counter()
+        st = fus.fusion_correct(st, *step, no, params)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        syncs.append(hostsync.COUNT)
+        failed = failed | st.failed
+    bg_est, ba_est, p_end = (x.cpu().numpy().astype(np.float64) for x in (st.bg, st.ba, st.pos))
+    bg_err = float(np.linalg.norm(bg_est - bg) / np.linalg.norm(bg))
+    pos_err = float(np.linalg.norm(p_end - pos[-1]))
+    # two corrections: under the profiler one takes seconds of host time
+    last = steps[-2:]
+    kernels, dev_ms, top = device_kernels(lambda i: fus.fusion_correct(st, *last[i], no, params), 2)
+    steady = np.asarray(times[5:]) * 1e3
+    log("fusion", corrections=len(steps), failed=bool(failed.item()),
+        bg_est=",".join(f"{v:.4f}" for v in bg_est), true_bg=",".join(map(str, TRUE_BG)),
+        bg_err_over_true=round(bg_err, 4), ba_est=",".join(f"{v:.4f}" for v in ba_est),
+        pos_err_m=round(pos_err, 4), ms_per_correction=round(float(steady.mean()), 2),
+        ms_p50=round(float(np.median(steady)), 2), first_ms=round(times[0] * 1e3, 1),
+        host_syncs_per_correction=round(float(np.mean(syncs)), 2),
+        device_kernels_per_correction=round(kernels, 1),
+        device_ms_per_correction=round(dev_ms, 3),
+        device_busy_share=round(dev_ms / float(steady.mean()), 4))
+    for key, ms, cnt in top:
+        print(f"  {ms:8.4f} ms/correction  {cnt:7.1f}/correction  {key}", flush=True)
+    if bool(failed.item()) or not all(np.isfinite(x).all() for x in (bg_est, ba_est, p_end)):
+        raise AssertionError("fusion: the smoother failed or went non-finite")
+    if not bg_err < 0.6 or not bg_est[0] > 0.005:
+        raise AssertionError(f"fusion: gyro bias {bg_est} against the injected {bg} "
+                             f"(|error| / |true| = {bg_err:.3f}, limit 0.6)")
+    if not pos_err < 0.1:
+        raise AssertionError(f"fusion: fused position {pos_err:.3f} m from the last correction")
+    return float(steady.mean())
+
+
+def vio_config(full: bool):
+    """The `VioRunnerConfig` of the fixture's camera file (320x240 pinhole,
+    f = 200, 64 features, 128 slots, 4 iterations, td fixed) or, with `full`,
+    the runner's own configuration for the public EuRoC cam0 size (752x480,
+    150 features at 30 px, CLAHE on, 256 slots, 6 iterations) with the
+    distortion taken out. Both at 10 Hz with the renderer's camera mounting
+    (camera z forward = body x)."""
+    import numpy as np
+    from scipy.spatial.transform import Rotation as Rsc
+
+    from lvislam_tpu_torch.core.config import CameraIntrinsics
+    from lvislam_tpu_torch.models.vio import estimator as est
+    from lvislam_tpu_torch.models.vio import feature_manager as fm
+    from lvislam_tpu_torch.models.vio import feature_tracker as ft
+    from lvislam_tpu_torch.models.vio.pipeline import VioRunnerConfig
+    from lvislam_tpu_torch.ops import ba
+    from lvislam_tpu_torch.utils.synthetic import R_CAM_BODY
+
+    qic = tuple(float(v) for v in np.roll(Rsc.from_matrix(R_CAM_BODY).as_quat(), 1))
+    zero = dict(k1=0.0, k2=0.0, p1=0.0, p2=0.0)
+    if full:
+        cam = CameraIntrinsics(model_type="PINHOLE", image_width=752, image_height=480,
+                               gamma1=458.654, gamma2=458.654, u0=367.215, v0=248.375, **zero)
+        return VioRunnerConfig(
+            camera=cam, tracker=ft.TrackerParams(max_cnt=150, min_dist=30, equalize=True),
+            caps=fm.VioCaps(window=10, max_features=256, imu_buf=64, frame_features=150),
+            params=est.VioParams(g_norm=9.81),
+            ba=ba.BAConfig(window=10, max_features=256, iterations=6),
+            image_height=480, image_width=752, freq=10.0, qic=qic)
+    cam = CameraIntrinsics(model_type="PINHOLE", image_width=320, image_height=240,
+                           gamma1=200.0, gamma2=200.0, u0=160.0, v0=120.0, **zero)
+    return VioRunnerConfig(
+        camera=cam, tracker=ft.TrackerParams(max_cnt=64, min_dist=16, equalize=False),
+        caps=fm.VioCaps(window=10, max_features=128, imu_buf=64, frame_features=64),
+        params=est.VioParams(g_norm=9.81, acc_n=3.9939570888238808e-01,
+                             gyr_n=1.5636343949698187e-01, acc_w=6.4356659353532566e-03,
+                             gyr_w=3.5640318696367613e-03),
+        ba=ba.BAConfig(window=10, max_features=128, iterations=4, estimate_td=False),
+        image_height=240, image_width=320, freq=10.0, qic=qic)
+
+
+def vio_inputs(full: bool):
+    """The 5 s camera + IMU stream of the VIO phases: world seed 0, the
+    figure-8 at scale 1.5 and period 8 s (enough accelerometer excitation to
+    observe scale), 200 Hz IMU, 10 Hz frames quantized to 8 bits. Returns
+    (trajectory, events, gyro, acc, frames) as `synthetic.vio_stream`."""
+    from lvislam_tpu_torch.utils import synthetic as syn
+
+    world = syn.default_world(seed=0)
+    traj = syn.figure8_trajectory(scale=1.5, period=8.0)
+    cam = vio_config(True).camera if full else None
+    return (traj,) + syn.vio_stream(world, traj, VIO_SECONDS, cam=cam)
+
+
+def vio_sampler(seed: int):
+    """The VIO phases' RANSAC draws for entry `seed` of VIO_SEEDS. 0: None,
+    the port's default draws. s > 0: the port's Gumbel top-k with its uniform
+    numbers from a host generator seeded with s on every call, so the card
+    draws what a CPU run of the port draws (a generator on the card gives
+    another stream)."""
+    import torch
+
+    from lvislam_tpu_torch.ops import ransac
+
+    if seed == 0:
+        return None
+    return lambda weights, n_hyp, k: ransac.sample_indices(
+        weights, n_hyp, k, torch.Generator().manual_seed(seed))
+
+
+def vio_summary(trajectory, traj):
+    """(ATE in m after rigid alignment, positions, quaternions) of a
+    runner's `trajectory` list against the ground truth `traj`."""
+    import numpy as np
+
+    from lvislam_tpu_torch.utils.metrics import ate_rmse
+
+    ts = np.array([x[0] for x in trajectory])
+    pos = np.stack([x[1] for x in trajectory])
+    quat = np.stack([x[2] for x in trajectory])
+    ate = ate_rmse(pos.astype(np.float64), traj.pose(ts)[0], align=True)
+    return float(ate), pos, quat
+
+
+def run_vio(cfg, stream, dev, sampler, split: bool = False):
+    """The stream through `VioRunner`, one frame at a time. Returns a dict:
+    the `runner`, `init_at` (index of the first frame with an initialized
+    output), and per processed frame `syncs` (host reads), `walls` (seconds,
+    device drained) and `ba_iterations`. With `split`, also `stages`: the
+    seconds of the runner's `track`, `propagate` and `estimate` a frame, each
+    wrapped here to drain the device before and after."""
+    import torch
+
+    from lvislam_tpu_torch.core import hostsync
+    from lvislam_tpu_torch.models.vio.pipeline import VioRunner
+
+    _, events, gyro, acc, frames = stream
+    runner = VioRunner(cfg, device=dev, sampler=sampler)
+    stages = {"track": [], "propagate": [], "estimate": []}
+
+    def timed(fn, into):
+        def call(*args):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args)
+            torch.cuda.synchronize()
+            into.append(time.perf_counter() - t0)
+            return out
+        return call
+
+    if split:
+        for name, into in stages.items():
+            setattr(runner, name, timed(getattr(runner, name), into))
+    torch.cuda.synchronize()
+    run = {"runner": runner, "init_at": None, "syncs": [], "walls": [], "ba_iterations": [],
+           "stages": stages}
+    for t, kind, i in events:
+        if kind == "imu":
+            runner.feed_imu(t, gyro[i], acc[i])
+            continue
+        hostsync.reset()
+        t0 = time.perf_counter()
+        out = runner.feed_image(t, frames[i])
+        torch.cuda.synchronize()
+        run["walls"].append(time.perf_counter() - t0)
+        run["syncs"].append(hostsync.COUNT)
+        run["ba_iterations"].append(out["ba_iterations"])
+        if run["init_at"] is None and runner.trajectory:
+            run["init_at"] = i
+    return run
+
+
+def vio_status(live: bool, failure_count: int, frame_count: int, ate) -> str:
+    """A VIO run against the gates: "ok" (`live`: initialized at the end
+    with a trajectory; no failure, a full window, ATE under
+    VIO_ATE_LIMIT_M), "misinitialized" (live and unflagged, but the ATE is
+    over: a wrong bootstrap that the failure checks did not catch),
+    "rebooted" (a failure was counted) or "never_initialized"."""
+    if failure_count:
+        return "rebooted"
+    if not live:
+        return "never_initialized"
+    return "ok" if ate < VIO_ATE_LIMIT_M and frame_count >= 10 else "misinitialized"
+
+
+def vio_outcome(run, traj) -> dict:
+    """One `run_vio` result in numbers, with its `vio_status`."""
+    import numpy as np
+
+    from lvislam_tpu_torch.core.hostsync import host_bool, host_int
+
+    runner = run["runner"]
+    out = {"initialized_at_frame": run["init_at"], "trajectory_points": len(runner.trajectory),
+           "failure_count": host_int(runner.vio.failure_count),
+           "frame_count": host_int(runner.vio.frame_count), "ate_m": None}
+    if runner.frame_count != out["frame_count"]:
+        raise AssertionError(f"vio: the runner's frame count {runner.frame_count} is not the "
+                             f"state's {out['frame_count']}")
+    live = host_bool(runner.vio.initialized) and len(runner.trajectory) >= 3
+    if live:
+        out["ate_m"], pos, quat = vio_summary(runner.trajectory, traj)
+        if not (np.isfinite(pos).all() and np.isfinite(quat).all()):
+            raise AssertionError("vio: non-finite trajectory")
+    out["status"] = vio_status(live, out["failure_count"], out["frame_count"], out["ate_m"])
+    return out
+
+
+def check_vio(name, cfg, stream, ref, dev, n_prof: int = 0):
+    """Phases 10 and 11: the stream through `VioRunner` once for every seed
+    of VIO_SEEDS (the RANSAC draws), each held to the gates by `vio_outcome`.
+    `ref` holds the JAX CPU run's outcome on the same stream for each of its
+    keys (`utils/anchors.py`). The phase fails unless as many runs are "ok"
+    as of JAX's over the same seeds, less VIO_OK_SLACK, and one at least.
+    The first "ok" run is the one whose frame times, host reads and K3/K4
+    launches are reported, and it is run again: the second trajectory must
+    be bit-identical. Returns that run's (K3, K4) launch counts."""
+    import numpy as np
+    import torch
+
+    from lvislam_tpu_torch.ops import clahe
+
+    traj = stream[0]
+    runs = {}
+    for seed in VIO_SEEDS:
+        clahe.HIST_LAUNCHES = 0
+        clahe.APPLY_LAUNCHES = 0
+        run = run_vio(cfg, stream, dev, vio_sampler(seed), split=True)
+        run["launched"] = (clahe.HIST_LAUNCHES, clahe.APPLY_LAUNCHES)
+        run["outcome"] = vio_outcome(run, traj)
+        runs[seed] = run
+        jax = ref[seed]
+        log(f"{name}_seed", seed=seed, **{k: (round(v, 5) if k == "ate_m" and v else v)
+                                          for k, v in run["outcome"].items()},
+            jax_status=jax["status"], jax_initialized_at_frame=jax["initialized_at_frame"],
+            jax_ate_m=jax["ate_m"])
+    n_frames = len(stream[4])
+    want = n_frames if cfg.tracker.equalize else 0
+    for seed, run in runs.items():
+        if run["launched"] != (want, want):
+            raise AssertionError(f"{name} seed {seed}: K3/K4 launched {run['launched']} times in "
+                                 f"{n_frames} frames (equalize={cfg.tracker.equalize})")
+    ok = [seed for seed, run in runs.items() if run["outcome"]["status"] == "ok"]
+    jax_ok = [seed for seed in VIO_SEEDS if ref[seed]["status"] == "ok"]
+    need = max(1, len(jax_ok) - VIO_OK_SLACK)
+    status = {seed: run["outcome"]["status"] for seed, run in runs.items()}
+    if len(ok) < need:
+        raise AssertionError(f"{name}: {len(ok)} of {len(VIO_SEEDS)} runs met the gates "
+                             f"({status}); the JAX CPU runs: {len(jax_ok)}; needed {need}")
+
+    seed = ok[0]
+    run, res = runs[seed], runs[seed]["outcome"]
+    init_at = run["init_at"]
+    _, pos, quat = vio_summary(run["runner"].trajectory, traj)
+    # steady state: the frames after the one that initialized
+    s0 = init_at + 1
+    tr, imu, img = (float(np.mean(run["stages"][k][s0:])) * 1e3
+                    for k in ("track", "propagate", "estimate"))
+    H, W = cfg.image_height, cfg.image_width
+    probe = torch.empty((H, W), device=dev)
+    log(name, frames=n_frames, image=f"{H}x{W}", features=cfg.tracker.max_cnt,
+        window=cfg.caps.window, slots=cfg.caps.max_features, ba_iterations_max=cfg.ba.iterations,
+        seeds=",".join(map(str, VIO_SEEDS)), ok_seeds=",".join(map(str, ok)),
+        jax_ok_seeds=",".join(map(str, jax_ok)), needed_ok=need,
+        misinitialized_seeds=",".join(str(k) for k, v in status.items() if v == "misinitialized"),
+        reported_seed=seed, initialized_at_frame=init_at,
+        trajectory_points=len(pos), failure_count=res["failure_count"],
+        frame_count=res["frame_count"], ate_m=round(res["ate_m"], 5),
+        steady_ms_per_frame=round(tr + imu + img, 2), tracker_ms=round(tr, 2),
+        process_imu_ms=round(imu, 2), process_image_ms=round(img, 2),
+        first_solved_frame_ms=round(run["walls"][init_at] * 1e3, 1),
+        ba_iterations_per_frame=round(float(np.mean(run["ba_iterations"][s0:])), 2),
+        host_syncs_per_frame=round(float(np.mean(run["syncs"][s0:])), 2),
+        host_syncs_max=max(run["syncs"]),
+        launches_K3=run["launched"][0], launches_K4=run["launched"][1],
+        K3_path=clahe.hist_path(H, W, 8, probe.data_ptr()),
+        K4_path=clahe.apply_path(H, W, 8, 256, probe.data_ptr()),
+        trajectory_sha256=sha256(pos, quat))
+    again = run_vio(cfg, stream, dev, vio_sampler(seed))
+    _, pos2, quat2 = vio_summary(again["runner"].trajectory, traj)
+    if again["init_at"] != init_at or not (np.array_equal(pos, pos2)
+                                           and np.array_equal(quat, quat2)):
+        raise AssertionError(f"{name} determinism: the second run of seed {seed} differs")
+    log(f"{name}_determinism", seed=seed, identical=True,
+        steady_ms_per_frame_unsplit=round(float(np.mean(again["walls"][s0:])) * 1e3, 2))
+    if n_prof:
+        # two frames at most: under the profiler a frame's ~40k small
+        # launches through torch.func take tens of seconds of host time
+        profile_vio(name, cfg, stream, dev, vio_sampler(seed), min(n_prof, 2, n_frames - s0),
+                    float(np.mean(again["walls"][s0:])) * 1e3)
+    return run["launched"]
+
+
+def profile_vio(name, cfg, stream, dev, sampler, n_prof: int, steady_ms: float):
+    """torch.profiler over the last `n_prof` frames of the stream through a
+    fresh `VioRunner`: device kernels and device ms a frame, and that device
+    time's share of `steady_ms`, the steady frame of this script run's
+    unprofiled repeat (under the profiler the host is several times slower,
+    the kernels are not)."""
+    from lvislam_tpu_torch.models.vio.pipeline import VioRunner
+
+    _, events, gyro, acc, frames = stream
+    runner = VioRunner(cfg, device=dev, sampler=sampler)
+    first = len(frames) - n_prof
+    tail = []
+
+    def feed(ev):
+        for t, kind, i in ev:
+            if kind == "imu":
+                runner.feed_imu(t, gyro[i], acc[i])
+            else:
+                runner.feed_image(t, frames[i])
+
+    cut = next(k for k, e in enumerate(events) if e[1] == "img" and e[2] == first)
+    # each profiled call: one frame and the IMU samples after it
+    for e in events[cut:]:
+        if e[1] == "img":
+            tail.append([e])
+        else:
+            tail[-1].append(e)
+    feed(events[:cut])
+    kernels, dev_ms, top = device_kernels(lambda i: feed(tail[i]), n_prof)
+    log("profile", path=name, frames=n_prof, device_kernels_per_frame=round(kernels, 1),
+        device_ms_per_frame=round(dev_ms, 3), unprofiled_steady_ms_per_frame=round(steady_ms, 2),
+        device_busy_share=round(dev_ms / steady_ms, 4))
+    for key, ms, cnt in top:
+        print(f"  {ms:8.4f} ms/frame  {cnt:7.1f}/frame  {key}", flush=True)
+
+
+def ba_alone(dev):
+    """Phase 12: `ba.solve` with each of the three solvers on the exact
+    synthetic window at the reference shape (window 10, 150 features, empty
+    prior), the states perturbed (positions + 3 cm, velocities + 5 cm/s) so
+    that every solver has work to do. Gates, as the JAX package's solver
+    parity test: "cholesky" and "schur" end within 2e-3 m of "qr" in every
+    position and at no more than 1.2 x its cost. Timed with CUDA events at a
+    fixed `iterations` steps (ftol = 0: no early stop, no host read)."""
+    import dataclasses
+
+    import torch
+
+    from lvislam_tpu_torch.core import hostsync
+    from lvislam_tpu_torch.ops import ba
+    from lvislam_tpu_torch.utils import synthetic as syn
+
+    caps, cfg, ws, pints, table, G = syn.consistent_window(BA_WINDOW, BA_FEATURES, seed=0,
+                                                           device=dev)
+    ws_p = ws._replace(Ps=ws.Ps + 0.03, Vs=ws.Vs + 0.05)
+    fv = torch.ones(cfg.window + 1, dtype=torch.bool, device=dev)
+    prior = ba.empty_prior(cfg, device=dev)
+    td0 = torch.zeros((), device=dev)
+
+    def solve(c):
+        return ba.solve(ws_p, table.inv_depth, table.obs, table.vel, table.obs_valid,
+                        table.start_frame, table.ids >= 0, table.lidar_flag, pints, fv, prior,
+                        G, td0, c)
+
+    res, ms = {}, {}
+    for solver in ("qr", "cholesky", "schur"):
+        c = dataclasses.replace(cfg, solver=solver)
+        hostsync.reset()
+        res[solver] = solve(c)
+        syncs = hostsync.COUNT
+        fixed = dataclasses.replace(c, ftol=0.0)
+        ms[solver] = cuda_ms(lambda: solve(fixed), reps=5, warm=1)
+        log("ba", solver=solver, window=cfg.window, features=cfg.max_features,
+            rows=cfg.d_state + cfg.window * 15 + cfg.max_features * (cfg.window + 1) * 2,
+            columns=cfg.d_total, iterations=res[solver].iterations,
+            final_cost=float(res[solver].final_cost), host_syncs=syncs,
+            ms_per_solve=round(ms[solver], 2), fixed_iterations=cfg.iterations,
+            ms_per_iteration=round(ms[solver] / cfg.iterations, 2),
+            reference_budget=BA_REFERENCE_BUDGET)
+    qr = res["qr"]
+    for solver in ("cholesky", "schur"):
+        dP = float((res[solver].ws.Ps - qr.ws.Ps).abs().max())
+        ratio = float(res[solver].final_cost / qr.final_cost)
+        log("ba_parity", solver=solver, max_dP_vs_qr_m=round(dP, 6), cost_over_qr=round(ratio, 4))
+        if not (dP <= 2e-3 and ratio < 1.2):
+            raise AssertionError(f"ba: {solver} ends {dP:.2e} m from qr at {ratio:.3f} x its cost")
+    if not all(bool(torch.isfinite(r.ws.Ps).all() & torch.isfinite(r.final_cost)) for r in res.values()):
+        raise AssertionError("ba: a solver went non-finite")
+    return ms
+
+
 def main() -> int:
     import torch
 
@@ -935,7 +1564,7 @@ def main() -> int:
     cam, world, traj, ts, frames = tracker_frames()
     log("frames", n=len(frames), shape=f"{frames[0].shape[0]}x{frames[0].shape[1]}",
         model=cam.model_type, gen_seconds=round(time.perf_counter() - t0, 1))
-    k34 = check_clahe_kernels(frames[0], dev)
+    k34 = check_clahe_kernels(rig_clahe_images(frames[0]), dev)
 
     # ---- 6. the tracker sequence through FeatureTracker ----
     clahe.HIST_LAUNCHES = 0
@@ -997,37 +1626,81 @@ def main() -> int:
                          [gn_blocks(h_c, corner, q_c, x6), gn_blocks(h_s, surf, q_s, x6)],
                          gn_pose(x6), frames[0], dev, sweep="--sweep" in sys.argv)
 
+    # ---- 9. the IMU side: dead reckoning, the smoother over the replay ----
+    from lvislam_tpu_torch.utils import anchors
+
+    imu_dead_reckoning(dev)
+    fusion_over_replay(traj1, dev)
+    imu_rate_prediction(dev)
+
+    # ---- 10. VIO at the fixture's size ----
+    t0 = time.perf_counter()
+    stream = vio_inputs(False)
+    log("vio_frames", n=len(stream[4]), shape="240x320", imu_samples=len(stream[2]),
+        gen_seconds=round(time.perf_counter() - t0, 1))
+    check_vio("vio_fixture", vio_config(False), stream, anchors.VIO_FIXTURE, dev, n_prof)
+
+    # ---- 11. VIO at full width: the EuRoC cam0 size, CLAHE on ----
+    t0 = time.perf_counter()
+    stream = vio_inputs(True)
+    log("vio_frames", n=len(stream[4]), shape="480x752", imu_samples=len(stream[2]),
+        gen_seconds=round(time.perf_counter() - t0, 1))
+    k34_vio = check_clahe_kernels({"euroc": (stream[4][0], "general")}, dev)["euroc"]
+    clahe_alone(stream[4][0], dev, alone_reporter(alone), sweep=False, tag="_480x752")
+    vio_k3, vio_k4 = check_vio("vio_full", vio_config(True), stream, anchors.VIO_FULL_WIDTH,
+                               dev, n_prof)
+    by_path = {"K1": {"lio_replay": launches["K1"]}, "K2": {"lio_replay": launches["K2"]},
+               "K3": {"tracker": launches["K3"], "vio_full": vio_k3},
+               "K4": {"tracker": launches["K4"], "vio_full": vio_k4}}
+    launches = {k: sum(v.values()) for k, v in by_path.items()}
+
+    # ---- 12. BA alone at the reference shape ----
+    ba_alone(dev)
+
     def timing(key):
         a = alone[key]
         return {"bound_ms": a["bound_us"] / 1e3, "bound_by": a["bound_by"],
                 "library_ms": a["library_ms"], "kernel_us": a["kernel_us"],
                 "bound_us": a["bound_us"], "bound_share": a["bound_share"]}
 
+    def at_vio_shape(key, col):
+        """The kernel's record at the full-width VIO frame's shape: wrapper
+        and plain ms, kernel-alone µs and its bound there."""
+        a = alone[f"{key}_480x752"]
+        return {"shape": "480x752", "ms": k34_vio[2][key], "plain_ms": k34_vio[2][f"{key}_plain"],
+                "max_abs_err": k34_vio[col], "kernel_us": a["kernel_us"],
+                "bound_us": a["bound_us"], "bound_ms": a["bound_us"] / 1e3,
+                "bound_by": a["bound_by"], "bound_share": a["bound_share"]}
+
     kernels = [
         {"name": "knn_tail", "route": "cuda",
          "source": "lvislam_tpu_torch/csrc/knn_tail.cu",
          "replaces": "lvislam_tpu/ops/pallas_knn.py:79",
-         "launches": launches["K1"], "max_abs_err": e1,
+         "launches": launches["K1"], "launches_by_path": by_path["K1"],
+         "max_abs_err": e1,
          "ms": m1, "plain_ms": p1, **timing("K1_pair"),
          "library": "torch.topk(d, 5, largest=False) on the masked distances: "
                     "the selection half only"},
         {"name": "gn_partials", "route": "cuda",
          "source": "lvislam_tpu_torch/csrc/gn_partials.cu",
          "replaces": "lvislam_tpu/ops/pallas_gn.py:369",
-         "launches": launches["K2"], "max_abs_err": e2,
+         "launches": launches["K2"], "launches_by_path": by_path["K2"],
+         "max_abs_err": e2,
          "ms": m2, "plain_ms": p2, **timing("K2_pair")},
         {"name": "tile_hist", "route": "cuda",
          "source": "lvislam_tpu_torch/csrc/clahe.cu",
          "replaces": "lvislam_tpu/ops/pallas_clahe.py:53",
-         "launches": launches["K3"], "max_abs_err": max(r[0] for r in k34.values()),
+         "launches": launches["K3"], "launches_by_path": by_path["K3"],
+         "max_abs_err": max(r[0] for r in (*k34.values(), k34_vio)),
          "ms": k34["rendered"][2]["K3"], "plain_ms": k34["rendered"][2]["K3_plain"],
-         **timing("K3")},
+         **timing("K3"), "vio_full": at_vio_shape("K3", 0)},
         {"name": "apply_cdf", "route": "cuda",
          "source": "lvislam_tpu_torch/csrc/clahe.cu",
          "replaces": "lvislam_tpu/ops/pallas_clahe.py:98",
-         "launches": launches["K4"], "max_abs_err": max(r[1] for r in k34.values()),
+         "launches": launches["K4"], "launches_by_path": by_path["K4"],
+         "max_abs_err": max(r[1] for r in (*k34.values(), k34_vio)),
          "ms": k34["rendered"][2]["K4"], "plain_ms": k34["rendered"][2]["K4_plain"],
-         **timing("K4")},
+         **timing("K4"), "vio_full": at_vio_shape("K4", 1)},
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,5 +1,4 @@
-"""SO(3) / SE(3) / quaternion helpers — port of ``lvislam_tpu.core.lie``
-(the subset the LIO slice uses).
+"""SO(3) / SE(3) / quaternion helpers — port of ``lvislam_tpu.core.lie``.
 
 Conventions match the JAX module: Hamilton quaternions stored ``[w, x, y,
 z]``; rotation matrices act on column vectors; Euler ``ypr`` in degrees with
@@ -57,6 +56,10 @@ def quat_multiply(q: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
 def quat_conjugate(q: torch.Tensor) -> torch.Tensor:
     return q * torch.tensor([1.0, -1.0, -1.0, -1.0], dtype=q.dtype,
                             device=q.device)
+
+
+def quat_inverse(q: torch.Tensor) -> torch.Tensor:
+    return quat_conjugate(q) / torch.sum(q * q, dim=-1, keepdim=True)
 
 
 def quat_normalize(q: torch.Tensor) -> torch.Tensor:
@@ -126,6 +129,26 @@ def matrix_to_quat(R: torch.Tensor) -> torch.Tensor:
     return quat_normalize(q)
 
 
+def _quat_mult_matrix(q: torch.Tensor, sign: float) -> torch.Tensor:
+    w = q[..., 0]
+    v = q[..., 1:4]
+    eye = torch.eye(3, dtype=q.dtype, device=q.device)
+    top = torch.cat([w[..., None, None], -v[..., None, :]], dim=-1)
+    bottom = torch.cat(
+        [v[..., :, None], w[..., None, None] * eye + sign * skew(v)], dim=-1)
+    return torch.cat([top, bottom], dim=-2)
+
+
+def quat_left(q: torch.Tensor) -> torch.Tensor:
+    """4x4 left-multiplication matrix: Qleft(q) @ p == q ⊗ p."""
+    return _quat_mult_matrix(q, 1.0)
+
+
+def quat_right(p: torch.Tensor) -> torch.Tensor:
+    """4x4 right-multiplication matrix: Qright(p) @ q == q ⊗ p."""
+    return _quat_mult_matrix(p, -1.0)
+
+
 def quat_slerp(q0: torch.Tensor, q1: torch.Tensor, t) -> torch.Tensor:
     """Spherical linear interpolation (shortest arc), branch-free."""
     q0 = quat_normalize(q0)
@@ -142,6 +165,18 @@ def quat_slerp(q0: torch.Tensor, q1: torch.Tensor, t) -> torch.Tensor:
     return quat_normalize(w0 * q0 + w1 * q1)
 
 
+def skew(v: torch.Tensor) -> torch.Tensor:
+    """Skew-symmetric matrix [v]×."""
+    zero = torch.zeros_like(v[..., 0])
+    r = torch.stack(
+        [zero, -v[..., 2], v[..., 1],
+         v[..., 2], zero, -v[..., 0],
+         -v[..., 1], v[..., 0], zero],
+        dim=-1,
+    )
+    return r.reshape(v.shape[:-1] + (3, 3))
+
+
 def so3_exp_quat(phi: torch.Tensor) -> torch.Tensor:
     """Exponential map axis-angle → unit quaternion, Taylor-safe."""
     angle_sq = torch.sum(phi * phi, dim=-1, keepdim=True)
@@ -151,6 +186,16 @@ def so3_exp_quat(phi: torch.Tensor) -> torch.Tensor:
     k = torch.where(small, 0.5 - angle_sq / 48.0, torch.sin(half) / angle)
     w = torch.where(small, 1.0 - angle_sq / 8.0, torch.cos(half))
     return torch.cat([w, k * phi], dim=-1)
+
+
+def so3_exp(phi: torch.Tensor) -> torch.Tensor:
+    """Exponential map axis-angle → rotation matrix (Rodrigues)."""
+    return quat_to_matrix(so3_exp_quat(phi))
+
+
+def so3_log(R: torch.Tensor) -> torch.Tensor:
+    """Logarithm map rotation matrix → axis-angle, Taylor-safe."""
+    return quat_log(matrix_to_quat(R))
 
 
 def quat_log(q: torch.Tensor) -> torch.Tensor:
@@ -163,6 +208,36 @@ def quat_log(q: torch.Tensor) -> torch.Tensor:
     scale = torch.where(small, 2.0 / torch.clamp(w, min=_EPS),
                         angle / torch.clamp(vn, min=_EPS))
     return scale * q[..., 1:4]
+
+
+def _jacobian_terms(phi: torch.Tensor):
+    theta_sq = torch.sum(phi * phi, dim=-1)[..., None, None]
+    theta = torch.sqrt(torch.clamp(theta_sq, min=_EPS * _EPS))
+    P = skew(phi)
+    eye = torch.eye(3, dtype=phi.dtype, device=phi.device).expand(P.shape)
+    return theta_sq, theta, P, P @ P, theta_sq < 1e-10, eye
+
+
+def so3_right_jacobian(phi: torch.Tensor) -> torch.Tensor:
+    """Right Jacobian of SO(3): Jr(φ) = I − (1−cosθ)/θ² [φ]× + (θ−sinθ)/θ³ [φ]×²."""
+    theta_sq, theta, P, PP, small, eye = _jacobian_terms(phi)
+    a = torch.where(small, 0.5 - theta_sq / 24.0,
+                    (1.0 - torch.cos(theta)) / torch.clamp(theta_sq, min=_EPS))
+    b = torch.where(small, 1.0 / 6.0 - theta_sq / 120.0,
+                    (theta - torch.sin(theta)) / torch.clamp(theta_sq * theta, min=_EPS))
+    return eye - a * P + b * PP
+
+
+def so3_right_jacobian_inv(phi: torch.Tensor) -> torch.Tensor:
+    """Inverse right Jacobian of SO(3)."""
+    theta_sq, theta, P, PP, small, eye = _jacobian_terms(phi)
+    cot_term = torch.where(
+        small,
+        1.0 / 12.0 + theta_sq / 720.0,
+        (1.0 / torch.clamp(theta_sq, min=_EPS))
+        - (1.0 + torch.cos(theta)) / torch.clamp(2.0 * theta * torch.sin(theta), min=_EPS),
+    )
+    return eye + 0.5 * P + cot_term * PP
 
 
 def matrix_to_ypr(R: torch.Tensor) -> torch.Tensor:
@@ -203,6 +278,28 @@ def rpy_to_quat(roll, pitch, yaw) -> torch.Tensor:
     return matrix_to_quat(ypr_to_matrix(ypr_deg))
 
 
+def quat_to_rpy(q: torch.Tensor):
+    """Quaternion → (roll, pitch, yaw) RADIANS."""
+    ypr = matrix_to_ypr(quat_to_matrix(q)) * (math.pi / 180.0)
+    return ypr[..., 2], ypr[..., 1], ypr[..., 0]
+
+
+def g2R(g: torch.Tensor) -> torch.Tensor:
+    """World-from-body rotation aligning measured gravity direction `g` with
+    +z and zeroing yaw."""
+    ng1 = g / torch.clamp(norm3(g, keepdim=True), min=_EPS)
+    ng2 = torch.tensor([0.0, 0.0, 1.0], dtype=g.dtype, device=g.device)
+    v = cross(ng1, ng2.expand(ng1.shape))
+    c = torch.sum(ng1 * ng2, dim=-1, keepdim=True)
+    axis_norm = norm3(v, keepdim=True)
+    angle = torch.atan2(axis_norm, c)
+    axis = v / torch.clamp(axis_norm, min=_EPS)
+    R0 = so3_exp(axis * angle)
+    yaw = matrix_to_ypr(R0)[..., 0:1]
+    yaw_fix = torch.cat([-yaw, torch.zeros_like(yaw), torch.zeros_like(yaw)], dim=-1)
+    return ypr_to_matrix(yaw_fix) @ R0
+
+
 def se3_compose(t1, q1, t2, q2):
     """T1 ∘ T2: first apply T2, then T1."""
     return t1 + quat_rotate(q1, t2), quat_normalize(quat_multiply(q1, q2))
@@ -211,6 +308,11 @@ def se3_compose(t1, q1, t2, q2):
 def se3_inverse(t, q):
     qi = quat_conjugate(q)
     return -quat_rotate(qi, t), qi
+
+
+def se3_apply(t, q, pts):
+    """Transform points (..., N, 3) by pose (t, q)."""
+    return quat_rotate(q[..., None, :], pts) + t[..., None, :]
 
 
 def se3_relative(t1, q1, t2, q2):
@@ -234,3 +336,12 @@ def pose6_to_matrix(x6: torch.Tensor) -> torch.Tensor:
     bottom = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=x6.dtype,
                           device=x6.device).expand(x6.shape[:-1] + (4,))
     return torch.cat([top, bottom[..., None, :]], dim=-2)
+
+
+def matrix_to_pose6(T: torch.Tensor) -> torch.Tensor:
+    """4×4 affine → [roll, pitch, yaw, tx, ty, tz] radians."""
+    ypr = matrix_to_ypr(T[..., :3, :3]) * (math.pi / 180.0)
+    return torch.cat(
+        [torch.stack([ypr[..., 2], ypr[..., 1], ypr[..., 0]], dim=-1), T[..., :3, 3]],
+        dim=-1,
+    )

@@ -33,9 +33,11 @@ def sample_indices(weights: torch.Tensor, n_hyp: int, k: int,
                    generator: torch.Generator) -> torch.Tensor:
     """(n_hyp, k) indices drawn without replacement, weighted by
     `weights`, by Gumbel top-k. Zero-weight points come last (in index
-    order), so the draw never fails."""
+    order), so the draw never fails. The uniform numbers are made on the
+    generator's device: a host generator gives the card the draws of a CPU
+    run."""
     u = torch.rand((n_hyp, weights.shape[0]), generator=generator,
-                   device=weights.device, dtype=torch.float32)
+                   device=generator.device, dtype=torch.float32).to(weights.device)
     gumbel = -torch.log(-torch.log(torch.clamp(u, min=1e-30)))
     keys = torch.log(weights)[None, :] + gumbel
     return torch.sort(keys, dim=1, descending=True, stable=True).indices[:, :k]

@@ -182,6 +182,26 @@ def figure8_trajectory(scale: float = 4.0, period: float = 40.0, z_amp: float = 
     return Trajectory(pos_fn=pos, rpy_fn=rpy)
 
 
+def simulate_imu_stream(
+    traj: Trajectory,
+    t0: float,
+    t1: float,
+    rate: float = 200.0,
+    accel_noise: float = 0.0,
+    gyro_noise: float = 0.0,
+    accel_bias=(0.0, 0.0, 0.0),
+    gyro_bias=(0.0, 0.0, 0.0),
+    seed: int = 0,
+):
+    """Returns (stamps, gyro (N,3), acc (N,3)) including bias + white noise."""
+    rng = np.random.default_rng(seed)
+    stamps = np.arange(t0, t1, 1.0 / rate)
+    w, f = traj.imu(stamps)
+    w = w + np.asarray(gyro_bias) + gyro_noise * rng.standard_normal(w.shape)
+    f = f + np.asarray(accel_bias) + accel_noise * rng.standard_normal(f.shape)
+    return stamps, w, f
+
+
 def simulate_lidar_scan(
     world: World,
     traj: Trajectory,
@@ -326,3 +346,112 @@ def render_camera_image(
     pts = origin + d_world * np.where(np.isfinite(rngs), rngs, 0.0)[:, None]
     img = np.where(np.isfinite(rngs), procedural_texture(pts), 0.0)
     return img.reshape(height, width).astype(np.float32)
+
+
+def vio_stream(world: World, traj: Trajectory, duration: float, cam_rate: float = 10.0,
+               imu_rate: float = 200.0, width: int = 320, height: int = 240,
+               f: float = 200.0, cam=None):
+    """A mav0-style camera + IMU stream in memory: ideal IMU samples at
+    (i + 1) / imu_rate and int(duration * cam_rate) - 1 frames at
+    0.1 + i / cam_rate, each quantized to 8 bits and back as a PNG round trip
+    does (truncating, then / 255 in float32). With `cam` the frames are
+    rendered through that camera model at its own size. Returns (events,
+    gyro (N, 3), acc (N, 3), frames): `events` is the time-ordered list of
+    (t, "imu" | "img", index), IMU first on equal stamps."""
+    ts = (np.arange(int(duration * imu_rate)) + 1) / imu_rate
+    gyro, acc = traj.imu(ts)
+    events = [(float(t), "imu", i) for i, t in enumerate(ts)]
+    frames = []
+    for i in range(int(duration * cam_rate) - 1):
+        t = 0.1 + i / cam_rate
+        img = render_camera_image(world, traj, t, width=width, height=height, f=f, cam=cam)
+        frames.append((img * 255).astype(np.uint8).astype(np.float32) / np.float32(255.0))
+        events.append((t, "img", i))
+    events.sort(key=lambda e: e[0])
+    return events, gyro, acc, frames
+
+
+def consistent_window_arrays(W: int = 4, F: int = 24, seed: int = 0,
+                             rate: float = 10.0, imu_rate: float = 160.0):
+    """An exact synthetic VIO window as float32 numpy arrays: W+1 body states
+    on the figure-8 (scale 3, period 30) at `rate` Hz, the ideal IMU samples
+    between them (W, n, 3 at `imu_rate`), and F landmarks ahead of frame 0
+    observed in every frame (camera == body: identity extrinsics), anchored
+    at frame 0 with their true inverse depths. Returns a dict: Ps, Qs, Vs,
+    imu_dt, accs, gyrs, obs, obs_valid, inv_depth."""
+    rng = np.random.default_rng(seed)
+    traj = figure8_trajectory(scale=3.0, period=30.0)
+    ts = np.arange(W + 1) / rate
+    Ps, Rs = traj.pose(ts)
+    Qs = np.roll(Rsc.from_matrix(Rs).as_quat(), 1, axis=-1)
+    Vs = (traj.pose(ts + 1e-4)[0] - traj.pose(ts - 1e-4)[0]) / 2e-4
+    n = int(imu_rate / rate)
+    accs, gyrs = [], []
+    for k in range(W):
+        w_, f_ = traj.imu((np.arange(k * n, (k + 1) * n) + 1) / imu_rate)
+        accs.append(f_)
+        gyrs.append(w_)
+
+    # landmarks ahead of the camera; the three unused draws keep the
+    # generator where the reference window has it
+    for _ in range(3):
+        rng.uniform(0, 1, F)
+    f32 = lambda a: np.asarray(a, np.float32)
+    Ps32, Qs32 = f32(Ps), f32(Qs)
+    R0 = Rsc.from_quat(np.roll(Qs32[0], -1)).as_matrix()
+    Xw = []
+    for _ in range(F):
+        d = rng.uniform(3, 9)
+        n_ = np.array([1.0, rng.uniform(-0.4, 0.4), rng.uniform(-0.3, 0.3)])
+        Xw.append(Ps32[0] + R0 @ (n_ / np.linalg.norm(n_) * d))
+    Xw = np.stack(Xw)
+    obs = np.zeros((F, W + 1, 2), np.float32)
+    obs_valid = np.zeros((F, W + 1), bool)
+    inv_depth = np.zeros(F, np.float32)
+    for k in range(W + 1):
+        Rk = Rsc.from_quat(np.roll(Qs32[k], -1)).as_matrix()
+        Xc = (Xw - Ps32[k]) @ Rk
+        z = Xc[:, 2]
+        obs[:, k] = Xc[:, :2] / np.maximum(z[:, None], 1e-6)
+        obs_valid[:, k] = z > 0.5
+        if k == 0:
+            inv_depth = (1.0 / np.maximum(z, 1e-3)).astype(np.float32)
+    return dict(Ps=Ps32, Qs=Qs32, Vs=f32(Vs), imu_dt=np.float32(1.0 / imu_rate),
+                accs=f32(np.stack(accs)), gyrs=f32(np.stack(gyrs)),
+                obs=obs, obs_valid=obs_valid, inv_depth=inv_depth)
+
+
+def consistent_window(W: int = 4, F: int = 24, seed: int = 0, device=None):
+    """`consistent_window_arrays` as the estimator's objects on `device` (the
+    card unless named): (caps, cfg, ws, pints, table, G), the preintegrations
+    made by the port's own ``preintegrate`` at the estimator's default
+    noise."""
+    import torch
+
+    from ..core.device import resolve
+    from ..models.vio import estimator as est
+    from ..models.vio import feature_manager as fm
+    from ..ops import ba
+    from ..ops import preintegration as pre
+
+    device = resolve(device)
+    a = consistent_window_arrays(W, F, seed)
+    t = lambda x: torch.as_tensor(x, device=device)
+    caps = fm.VioCaps(window=W, max_features=F, imu_buf=16, frame_features=F)
+    cfg = ba.BAConfig(window=W, max_features=F, iterations=6,
+                      estimate_td=False, estimate_extrinsic=False)
+    params = est.VioParams(g_norm=GRAVITY)
+    ws = ba._zero_ws(cfg, torch.float32, device)._replace(
+        Ps=t(a["Ps"]), Qs=t(a["Qs"]), Vs=t(a["Vs"]))
+    noise = pre.ImuNoise.create(params.acc_n, params.gyr_n, params.acc_w, params.gyr_w,
+                                device=device)
+    accs, gyrs = t(a["accs"]), t(a["gyrs"])
+    z3 = torch.zeros(3, device=device)
+    dts = torch.full(accs.shape[:2], float(a["imu_dt"]), device=device)
+    pints = pre.preintegrate(pre.preint_init(accs[:, 0], gyrs[:, 0], z3, z3), dts, accs,
+                             gyrs, noise)
+    table = fm.table_init(caps, device=device)._replace(
+        ids=torch.arange(F, dtype=torch.int32, device=device),
+        obs=t(a["obs"]), obs_valid=t(a["obs_valid"]), inv_depth=t(a["inv_depth"]))
+    G = torch.tensor([0.0, 0.0, params.g_norm], device=device)
+    return caps, cfg, ws, pints, table, G

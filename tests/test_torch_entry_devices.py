@@ -5,9 +5,14 @@ raises instead of falling back to the CPU. ``device="cpu"`` works."""
 import pytest
 import torch
 
-from lvislam_tpu_torch.models.lio import mapping
+from lvislam_tpu_torch.core.config import CameraIntrinsics
+from lvislam_tpu_torch.models.lio import imu_fusion, mapping
 from lvislam_tpu_torch.models.lio.pipeline import LioConfig, LioPipeline
+from lvislam_tpu_torch.models.vio import estimator, feature_manager
 from lvislam_tpu_torch.models.vio.feature_tracker import FeatureTracker, tracker_init, TrackerParams
+from lvislam_tpu_torch.models.vio.pipeline import VioRunner, VioRunnerConfig
+from lvislam_tpu_torch.ops import ba, preintegration
+from lvislam_tpu_torch.utils import synthetic
 
 torch.set_num_threads(1)
 
@@ -15,11 +20,27 @@ CAPS = mapping.LioCaps(max_keyframes=8, kf_corner=32, kf_surf=64, sel_keyframes=
                        map_corner=256, map_surf=512, scan_corner=32, scan_surf=64,
                        max_loops=2, max_gps=2, loop_submap=128, icp_iters=2)
 CFG = LioConfig(n_scan=4, horizon=64, point_capacity=256, caps=CAPS)
+VIO_CAPS = feature_manager.VioCaps(window=3, max_features=16, imu_buf=8, frame_features=8)
+BA_CFG = ba.BAConfig(window=3, max_features=16)
+RUNNER_CFG = VioRunnerConfig(
+    camera=CameraIntrinsics(model_type="PINHOLE", image_width=64, image_height=48),
+    tracker=TrackerParams(max_cnt=8, klt_levels=1), caps=VIO_CAPS, ba=BA_CFG,
+    image_height=48, image_width=64)
 BUILDERS = {
     "LioPipeline": lambda **kw: LioPipeline(CFG, **kw).state.x6,
     "lio_init": lambda **kw: mapping.lio_init(CAPS, **kw).x6,
     "FeatureTracker.init_state": lambda **kw: FeatureTracker().init_state(**kw).pts,
     "tracker_init": lambda **kw: tracker_init(48, 64, TrackerParams(), **kw).pts,
+    "VioRunner": lambda **kw: VioRunner(RUNNER_CFG, **kw).vio.ws.Ps,
+    "vio_init": lambda **kw: estimator.vio_init(VIO_CAPS, estimator.VioParams(), **kw).prior.J,
+    "fusion_init": lambda **kw: imu_fusion.fusion_init(imu_fusion.FusionParams(), **kw).sqrt_info,
+    "table_init": lambda **kw: feature_manager.table_init(VIO_CAPS, **kw).obs,
+    "empty_prior": lambda **kw: ba.empty_prior(BA_CFG, **kw).ws_bar.Qs,
+    "preint_init": lambda **kw: preintegration.preint_init([0.0, 0.0, 9.8], [0.0] * 3, [0.0] * 3,
+                                                           [0.0] * 3, **kw).jacobian,
+    "ImuNoise.create": lambda **kw: preintegration.ImuNoise.create(0.1, 0.01, 1e-3, 1e-4, **kw).acc_n,
+    "navstate_identity": lambda **kw: preintegration.navstate_identity(**kw).quat,
+    "consistent_window": lambda **kw: synthetic.consistent_window(2, 4, **kw)[2].Ps,
 }
 
 
@@ -35,3 +56,9 @@ def test_default_device_is_the_card(name):
 @pytest.mark.parametrize("name", list(BUILDERS))
 def test_cpu_when_asked(name):
     assert BUILDERS[name](device="cpu").device.type == "cpu"
+
+
+def test_preint_init_follows_its_inputs():
+    """Given a tensor, the fresh delta lies where that tensor lies."""
+    acc = torch.zeros(3)
+    assert preintegration.preint_init(acc, acc, acc, acc).jacobian.device.type == "cpu"

@@ -11,6 +11,7 @@ tolerances stated at each test."""
 
 import numpy as np
 import jax.numpy as jnp
+import pytest
 import torch
 
 from lvislam_tpu.core import lie as jl
@@ -57,6 +58,44 @@ def test_lie_helpers_match_jax():
         _close(a[1], b[1])
     x6 = rng.uniform(-1, 1, 6).astype(np.float32)
     _close(jl.pose6_to_matrix(J(x6)), tl.pose6_to_matrix(T(x6)))
+
+
+_RNG = np.random.default_rng(10)
+_Q = _RNG.normal(size=(50, 4)).astype(np.float32)
+_QU = _Q / np.linalg.norm(_Q, axis=1, keepdims=True)
+_V = _RNG.normal(size=(50, 3)).astype(np.float32)
+_V[:3] *= 1e-6  # the Taylor branches near zero angle
+_T4 = np.tile(np.eye(4, dtype=np.float32), (50, 1, 1))
+_T4[:, :3, :3] = np.asarray(jl.quat_to_matrix(jnp.asarray(_QU)))
+_T4[:, :3, 3] = _V
+# name -> (arguments, absolute tolerance); angles from matrix_to_ypr lose
+# digits near gimbal lock, so the Euler outputs get 5e-5 rad
+LIE_CASES = {
+    "skew": ((_V,), 0.0),
+    "g2R": ((_V + np.array([0, 0, 9.8], np.float32),), 1e-5),
+    "so3_exp": ((_V,), 1e-5),
+    "so3_log": ((_T4[:, :3, :3],), 1e-5),
+    "quat_left": ((_Q,), 0.0),
+    "quat_right": ((_Q,), 0.0),
+    "quat_inverse": ((_Q,), 1e-6),
+    "quat_to_rpy": ((_QU,), 5e-5),
+    "se3_apply": ((_V[0], _QU[0], _V[1:]), 1e-5),
+    "matrix_to_pose6": ((_T4,), 5e-5),
+    "so3_right_jacobian": ((_V,), 1e-5),
+    "so3_right_jacobian_inv": ((_V,), 1e-5),
+}
+
+
+@pytest.mark.parametrize("name", list(LIE_CASES))
+def test_lie_additions_match_jax(name):
+    args, atol = LIE_CASES[name]
+    out_j = getattr(jl, name)(*map(jnp.asarray, args))
+    out_t = getattr(tl, name)(*map(_t, args))
+    if not isinstance(out_j, tuple):
+        out_j, out_t = (out_j,), (out_t,)
+    for a, b in zip(out_j, out_t):
+        assert b.dtype == torch.float32 and tuple(b.shape) == a.shape
+        _close(a, b, atol=atol)
 
 
 def test_gyro_rotation_table_bit_identical():

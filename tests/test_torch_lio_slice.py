@@ -292,6 +292,11 @@ def test_port_imports_no_jax():
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'lvislam_tpu' or m.startswith('lvislam_tpu.')]\n"
         "assert not bad, bad\n"
+        "need = ['ops.preintegration', 'ops.triangulate', 'ops.handeye', 'ops.ba', 'ops.dense',\n"
+        "        'models.lio.imu_fusion', 'models.vio.feature_manager', 'models.vio.initializer',\n"
+        "        'models.vio.estimator', 'models.vio.pipeline', 'utils.convert', 'utils.anchors']\n"
+        "missing = [m for m in need if 'lvislam_tpu_torch.' + m not in sys.modules]\n"
+        "assert not missing, missing\n"
         "print('clean', len([m for m in sys.modules if m.startswith('lvislam_tpu_torch')]))\n"
     )
     r = _run_python(["-c", code], cwd=ROOT)
