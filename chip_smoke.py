@@ -80,6 +80,37 @@ Phases, one line each:
    synthetic window at the reference shape (window 10, 150 features); the
    three must agree; ms a solve by CUDA events.
 
+13. loop_db: the visual loop detector alone (``add_and_detect``, the port's
+   default draws) over the revisit scene of ``tests/test_loop_detector.py``
+   (world seed 3, figure-8 period 8 s, 21 frames 320x240, raycast depths):
+   the accepted (frame, old) pairs equal to the JAX CPU run's
+   (``utils/anchors.LOOP_SCENE``), or differing in one pair only where the
+   card's PnP inliers for that (frame, old slot) lie within 2 of
+   ``min_loop_matches``; at least one pair. ms an ``add_and_detect`` (CUDA
+   events); the BoW scores of frames where the card verified another slot.
+14. lvi_parity: config 5 at the parity scale (``bench.py:465-545``: the 12 s
+   figure-8, 4 x 900 scans, 320x240 pinhole frames; ``make_system`` with
+   ``apply_perf_knobs``, K1 on) through ``LviSystem``'s entry points, 2 s
+   warm, 10 s timed. Gates: the configuration (kernels aside) and the
+   stream hash to the JAX anchor's; the VIO initialized with no failure and
+   ``vins_odom`` set; the aligned ATE within LVI_BAND of the worst of the
+   JAX package's clean-CPU readings (``utils/anchors.LVI_PARITY``, the
+   interactive path, and ``bench_anchors.json``, the batched replay); the
+   first 4 s repeated bit for bit. Reports RTF, ms a steady ``lidar`` and
+   ``image`` handler (``MetricsLogger``), host syncs a scan and a frame,
+   K1 launches a processed scan, and the init frame and path.
+15. lvi_full: config 5 at the shipped scale (``bench.py:668-767``: 7 s,
+   4 x 6000 scans, the MEI 1024x576 rig with CLAHE, 150 features, the loop
+   detector with the trained vocabulary; K1-K4 on), 2 s warm, 5 s timed.
+   Gates: VIO initialized, no failure, loop-database inserts equal to the
+   VIO keyframes after initialization, each kernel launched, ATE <= 0.10 m
+   (if not, a second run with mapRebuildEvery=1 is printed beside it and
+   gated). The streams of phases 14 and 15 are raycast by worker processes
+   while phases 1-12 run.
+
+``--loop`` adds the 38 s revisit arm of ``bench.py:770-887`` on the parity
+configuration (192 keyframes, 16 loop slots): at least one loop factor.
+
 Then one JSON line of kernel records, and last the result line
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero.
 There is no CPU path: without a GPU the script fails.
@@ -143,6 +174,14 @@ VIO_SEEDS = (0, 1, 2)
 VIO_OK_SLACK = 1
 BA_WINDOW, BA_FEATURES = 10, 150
 BA_REFERENCE_BUDGET = "35ms/10iterations"  # the reference estimator's solver budget
+# phases 13-15: the fused system (config 5)
+LVI_WARM_S, LVI_PARITY_S, LVI_REPEAT_S, LVI_FULL_S, LVI_LOOP_S = 2.0, 12.0, 4.0, 7.0, 38.0
+# the parity gate: the worst of the JAX package's clean-CPU readings of the
+# sequence (interactive path and batched replay) times the ~5% build band
+# NOTES r5 measured on the JAX side (0.0904-0.0961 m)
+LVI_BAND = 1.05
+LVI_FULL_ATE_M = 0.10  # an absolute bound of the shipped-scale sequence
+STREAM_WORKERS = 4  # raycasting processes for phases 13-15
 
 
 T_START = time.perf_counter()
@@ -249,27 +288,53 @@ def full_width_config():
     )
 
 
-def gen_scans():
-    """The bench's 91 scans (`bench.py:_gen_scans`, `_lio_scans_data`)."""
+class Prefetch:
+    """Raycasts (`synthetic.run_job` of each job) submitted to `pool` at
+    once, or run here without a pool; `get()` waits for them and returns
+    `finish(results)`. The script raycasts the streams of later phases
+    while the card runs earlier ones."""
+
+    def __init__(self, pool, jobs, finish):
+        from lvislam_tpu_torch.utils import synthetic as syn
+
+        self.jobs, self.finish, self.value, self.waited_s = jobs, finish, None, 0.0
+        self.futures = None if pool is None else [pool.submit(syn.run_job, j) for j in jobs]
+
+    def get(self):
+        from lvislam_tpu_torch.utils import synthetic as syn
+
+        if self.value is None:
+            t0 = time.perf_counter()
+            results = ([syn.run_job(j) for j in self.jobs] if self.futures is None
+                       else [f.result() for f in self.futures])
+            self.value = self.finish(results)
+            self.waited_s = time.perf_counter() - t0
+        return self.value
+
+
+def scan_jobs():
+    """The bench's 91 scans (`bench.py:_gen_scans`, `_lio_scans_data`) as
+    (jobs, finish): finish gives [(scan, IMU rel. times, gyro, rpy)]."""
     import numpy as np
     from scipy.spatial.transform import Rotation as Rsc
 
     from lvislam_tpu_torch.utils import synthetic as syn
 
-    world = syn.default_world(seed=0)
     traj = syn.figure8_trajectory(scale=3.0, period=40.0)
-    scans = []
-    for i in range(N_SCANS):
-        ts = i / RATE
-        scan = syn.simulate_lidar_scan(world, traj, ts, n_scan=4, horizon=6000,
-                                       sweep_time=1.0 / RATE)
-        it = np.arange(ts - 0.005, ts + 1.0 / RATE + 0.01, 1.0 / 200.0)
-        w, _ = traj.imu(it)
-        _, R = traj.pose(np.array([ts]))
-        rpy = Rsc.from_matrix(R[0]).as_euler("ZYX")[::-1]
-        scans.append((scan, (it - ts).astype(np.float32), w.astype(np.float32),
-                      np.array(rpy, np.float32)))
-    return scans
+    ts = [i / RATE for i in range(N_SCANS)]
+
+    def finish(scans):
+        out = []
+        for t, scan in zip(ts, scans):
+            it = np.arange(t - 0.005, t + 1.0 / RATE + 0.01, 1.0 / 200.0)
+            w, _ = traj.imu(it)
+            _, R = traj.pose(np.array([t]))
+            rpy = Rsc.from_matrix(R[0]).as_euler("ZYX")[::-1]
+            out.append((scan, (it - t).astype(np.float32), w.astype(np.float32),
+                        np.array(rpy, np.float32)))
+        return out
+
+    return [("scan", (0, 3.0, 40.0), t, 6000, 1.0 / RATE) for t in ts], finish
 
 
 def parity_inputs(dev):
@@ -688,26 +753,31 @@ def clahe_alone(frame, dev, report, sweep: bool, tag: str = ""):
         report(f"K4_rows{rows}", *k4(imgs, 8, rows), f"{H}x{W}")
 
 
-def tracker_frames():
+def tracker_frame_jobs():
     """The MEI 1024x576 rig's frames of the LIO replay's world and
     trajectory at t = 0.1 + i/10, quantized to 8 bits and back as the
-    system's frame packer does (`frame_step.py:72,139`). Returns (camera,
-    world, trajectory, stamps, frames as (H, W) float32 arrays)."""
+    system's frame packer does (`frame_step.py:72,139`), as (jobs, finish):
+    finish gives (camera, world, trajectory, stamps, frames as (H, W)
+    float32 arrays)."""
     import numpy as np
 
     from lvislam_tpu_torch.core.config import CameraIntrinsics
     from lvislam_tpu_torch.utils import synthetic as syn
 
     cam = CameraIntrinsics()
-    world = syn.default_world(seed=0)
-    traj = syn.figure8_trajectory(scale=3.0, period=40.0)
     ts = [0.1 + i / RATE for i in range(N_FRAMES)]
-    frames = []
-    for t in ts:
-        img = syn.render_camera_image(world, traj, t, cam=cam)
-        u8 = np.clip(np.round(img * 255.0), 0, 255).astype(np.uint8)
-        frames.append(u8.astype(np.float32) * np.float32(1.0 / 255.0))
-    return cam, world, traj, ts, frames
+
+    def finish(u8s):
+        frames = [u8.astype(np.float32) * np.float32(1.0 / 255.0) for u8 in u8s]
+        return (cam, syn.default_world(seed=0), syn.figure8_trajectory(scale=3.0, period=40.0),
+                ts, frames)
+
+    return [("image", (0, 3.0, 40.0), t, 320, 240, 200.0, cam) for t in ts], finish
+
+
+def tracker_frames():
+    """The tracker phase's frames, rendered here (`tracker_frame_jobs`)."""
+    return Prefetch(None, *tracker_frame_jobs()).get()
 
 
 def depth_cloud(scans, traj):
@@ -1044,31 +1114,24 @@ def imu_rate_prediction(dev):
                              f"{err[: len(err) // 2].max():.3f} m over the first half")
 
 
-def fusion_over_replay(traj6, dev):
-    """Phase 9b: the two-state smoother over the LIO replay. `traj6` (N, 6)
-    is the replay's [roll, pitch, yaw, x, y, z] a scan, scan i at i / RATE s.
-    `fusion_initialize` on the first pose, then one `fusion_correct` a scan
-    with the IMU samples since the scan before (200 Hz, the injected biases
-    and noise of the JAX package's bias test, at its relaxed bias walk) and
-    the replay's own pose as the correction. Gates: never failed; the gyro
-    bias within 0.6 |true| of the injected one; the fused position within
-    0.1 m of the last correction pose."""
+def fusion_inputs(traj6):
+    """Phase 9b's inputs as numpy: the smoother's settings (the JAX bias
+    test's), the first pose, and one correction a later scan: (dts, accs,
+    gyrs) of the 200 Hz samples since the scan before, with the injected
+    biases and noise (seed 0), padded to FUSION_SAMPLES, and the scan's
+    pose (position, wxyz quaternion). `traj6` (N, 6) is the replay's [roll,
+    pitch, yaw, x, y, z] a scan, scan i at i / RATE s."""
     import numpy as np
-    import torch
     from scipy.spatial.transform import Rotation as Rsc
 
-    from lvislam_tpu_torch.core import hostsync
-    from lvislam_tpu_torch.models.lio import imu_fusion as fus
     from lvislam_tpu_torch.utils import synthetic as syn
 
     traj = syn.figure8_trajectory(scale=3.0, period=40.0)
-    bg, ba = np.array(TRUE_BG), np.array(TRUE_BA)
     n = traj6.shape[0]
-    t, w, f = syn.simulate_imu_stream(traj, 0.0, n / RATE, rate=200.0, gyro_bias=bg,
-                                      accel_bias=ba, gyro_noise=1e-4, accel_noise=1e-3)
-    params = fus.FusionParams(imuGravity=syn.GRAVITY, imuAccBiasN=2e-2, imuGyrBiasN=5e-3,
-                              priorBiasSigma=0.1)
-    f32 = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)
+    t, w, f = syn.simulate_imu_stream(traj, 0.0, n / RATE, rate=200.0, gyro_bias=np.array(TRUE_BG),
+                                      accel_bias=np.array(TRUE_BA), gyro_noise=1e-4,
+                                      accel_noise=1e-3)
+    params = dict(imuGravity=syn.GRAVITY, imuAccBiasN=2e-2, imuGyrBiasN=5e-3, priorBiasSigma=0.1)
     # x6's rotation is Rz(yaw) Ry(pitch) Rx(roll)
     quats = np.roll(Rsc.from_euler("ZYX", traj6[:, 2::-1].astype(np.float64)).as_quat(), 1, axis=1)
     pos = traj6[:, 3:6]
@@ -1083,9 +1146,47 @@ def fusion_over_replay(traj6, dev):
         dts[:m] = np.diff(t[sel], prepend=(k - 1) / RATE)
         accs[:m], gyrs[:m] = f[sel], w[sel]
         accs[m:], gyrs[m:] = accs[m - 1], gyrs[m - 1]
-        steps.append(tuple(f32(a) for a in (dts, accs, gyrs, pos[k], quats[k])))
+        steps.append((dts, accs, gyrs, np.asarray(pos[k], np.float32),
+                      np.asarray(quats[k], np.float32)))
+    return params, (np.asarray(pos[0], np.float32), np.asarray(quats[0], np.float32)), steps
+
+
+def fusion_errors(bg_est, ba_est, p_end, p_last):
+    """(gyro bias error / |true|, accelerometer bias error / |true|, fused
+    position's distance to the last correction) of a smoother's end state."""
+    import numpy as np
+
+    bg, ba = np.array(TRUE_BG), np.array(TRUE_BA)
+    return (float(np.linalg.norm(np.asarray(bg_est, np.float64) - bg) / np.linalg.norm(bg)),
+            float(np.linalg.norm(np.asarray(ba_est, np.float64) - ba) / np.linalg.norm(ba)),
+            float(np.linalg.norm(np.asarray(p_end, np.float64) - np.asarray(p_last, np.float64))))
+
+
+def fusion_over_replay(traj6, dev):
+    """Phase 9b: the two-state smoother over the LIO replay
+    (`fusion_inputs`): `fusion_initialize` on the first pose, then one
+    `fusion_correct` a scan with the replay's own pose as the correction.
+    Gates: never failed; the gyro bias within 0.6 |true| of the injected
+    one; the fused position within 0.1 m of the last correction pose. The
+    JAX package's `fusion_correct` on the CPU over the same poses (when the
+    replay is the one `utils/anchors.FUSION_REPLAY` names) is printed
+    beside the card's errors."""
+    import numpy as np
+    import torch
+
+    from lvislam_tpu_torch.core import hostsync
+    from lvislam_tpu_torch.models.lio import imu_fusion as fus
+    from lvislam_tpu_torch.utils import anchors
+
+    settings, first, arrays = fusion_inputs(traj6)
+    params = fus.FusionParams(**settings)
+    f32 = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)
+    steps = [tuple(f32(a) for a in step) for step in arrays]
+    bg = np.array(TRUE_BG)
+    pos = traj6[:, 3:6]
     no = torch.zeros((), dtype=torch.bool, device=dev)
-    st = fus.fusion_initialize(fus.fusion_init(params, device=dev), f32(pos[0]), f32(quats[0]), params)
+    st = fus.fusion_initialize(fus.fusion_init(params, device=dev), f32(first[0]), f32(first[1]),
+                               params)
     failed = no
     torch.cuda.synchronize()
     times, syncs = [], []
@@ -1098,8 +1199,9 @@ def fusion_over_replay(traj6, dev):
         syncs.append(hostsync.COUNT)
         failed = failed | st.failed
     bg_est, ba_est, p_end = (x.cpu().numpy().astype(np.float64) for x in (st.bg, st.ba, st.pos))
-    bg_err = float(np.linalg.norm(bg_est - bg) / np.linalg.norm(bg))
-    pos_err = float(np.linalg.norm(p_end - pos[-1]))
+    bg_err, ba_err, pos_err = fusion_errors(bg_est, ba_est, p_end, pos[-1])
+    jref = anchors.FUSION_REPLAY
+    same_poses = sha256(traj6) == jref["poses_sha256"]
     # two corrections: under the profiler one takes seconds of host time
     last = steps[-2:]
     kernels, dev_ms, top = device_kernels(lambda i: fus.fusion_correct(st, *last[i], no, params), 2)
@@ -1107,7 +1209,10 @@ def fusion_over_replay(traj6, dev):
     log("fusion", corrections=len(steps), failed=bool(failed.item()),
         bg_est=",".join(f"{v:.4f}" for v in bg_est), true_bg=",".join(map(str, TRUE_BG)),
         bg_err_over_true=round(bg_err, 4), ba_est=",".join(f"{v:.4f}" for v in ba_est),
-        pos_err_m=round(pos_err, 4), ms_per_correction=round(float(steady.mean()), 2),
+        ba_err_over_true=round(ba_err, 4), pos_err_m=round(pos_err, 4),
+        jax_same_poses=same_poses, jax_bg_err_over_true=round(jref["bg_err_over_true"], 4),
+        jax_ba_err_over_true=round(jref["ba_err_over_true"], 4),
+        jax_pos_err_m=round(jref["pos_err_m"], 4), ms_per_correction=round(float(steady.mean()), 2),
         ms_p50=round(float(np.median(steady)), 2), first_ms=round(times[0] * 1e3, 1),
         host_syncs_per_correction=round(float(np.mean(syncs)), 2),
         device_kernels_per_correction=round(kernels, 1),
@@ -1166,17 +1271,23 @@ def vio_config(full: bool):
         image_height=240, image_width=320, freq=10.0, qic=qic)
 
 
-def vio_inputs(full: bool):
-    """The 5 s camera + IMU stream of the VIO phases: world seed 0, the
-    figure-8 at scale 1.5 and period 8 s (enough accelerometer excitation to
-    observe scale), 200 Hz IMU, 10 Hz frames quantized to 8 bits. Returns
-    (trajectory, events, gyro, acc, frames) as `synthetic.vio_stream`."""
+def vio_input_jobs(full: bool):
+    """The 5 s camera + IMU stream of the VIO phases as (jobs, finish)
+    (`synthetic.vio_stream_jobs`): world seed 0, the figure-8 at scale 1.5
+    and period 8 s (enough accelerometer excitation to observe scale), 200
+    Hz IMU, 10 Hz frames quantized to 8 bits. finish gives (trajectory,
+    events, gyro, acc, frames)."""
     from lvislam_tpu_torch.utils import synthetic as syn
 
-    world = syn.default_world(seed=0)
     traj = syn.figure8_trajectory(scale=1.5, period=8.0)
     cam = vio_config(True).camera if full else None
-    return (traj,) + syn.vio_stream(world, traj, VIO_SECONDS, cam=cam)
+    head, jobs = syn.vio_stream_jobs(VIO_SECONDS, cam=cam, world_seed=0, scale=1.5, period=8.0)
+    return jobs, lambda imgs: (traj, *syn.vio_stream_join(head, imgs))
+
+
+def vio_inputs(full: bool):
+    """The VIO phases' stream, rendered here (`vio_input_jobs`)."""
+    return Prefetch(None, *vio_input_jobs(full)).get()
 
 
 def vio_sampler(seed: int):
@@ -1468,6 +1579,417 @@ def ba_alone(dev):
     return ms
 
 
+# ---------------------------------------------------------------------------
+# Phases 13-15: visual loop detection and the fused LVI system (config 5)
+# ---------------------------------------------------------------------------
+
+def stream_pool():
+    """Worker processes for the raycasts of every phase's stream, started
+    before the card's phases so the host renders while the card runs
+    (spawned: the workers never touch CUDA; one BLAS thread each)."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    for var in ("OMP_NUM_THREADS", "OPENBLAS_NUM_THREADS", "MKL_NUM_THREADS"):
+        os.environ.setdefault(var, "1")
+    n = max(1, min(STREAM_WORKERS, (os.cpu_count() or 2) - 2))
+    return ProcessPoolExecutor(n, mp_context=multiprocessing.get_context("spawn"))
+
+
+def lvi_stream(pool, **kw) -> Prefetch:
+    """A fused-system stream (`synthetic.lvi_sequence_jobs(**kw)`)."""
+    from lvislam_tpu_torch.utils import synthetic as syn
+
+    head, jobs = syn.lvi_sequence_jobs(**kw)
+    return Prefetch(pool, jobs, lambda results: syn.lvi_sequence_join(head, results))
+
+
+def lvi_parity_config(kernels: bool = True):
+    """Config 5 at the parity scale: `tests/test_lvi_system.py:make_system`
+    with `bench.py:apply_perf_knobs` (throttle 0.15 s, "schur",
+    nnRefreshEvery=2, mapRebuildEvery=1, K2 off). `kernels`: K1 on with
+    `gatherOncePerScan`, as the bench runs it on an accelerator; without,
+    the CPU anchor's settings (`utils/anchors.LVI_PARITY`)."""
+    import numpy as np
+    from scipy.spatial.transform import Rotation as Rsc
+
+    from lvislam_tpu_torch.core.config import CameraIntrinsics
+    from lvislam_tpu_torch.models import pipeline as lvi
+    from lvislam_tpu_torch.models.lio import mapping
+    from lvislam_tpu_torch.models.lio.pipeline import LioConfig
+    from lvislam_tpu_torch.models.loop import loop_detector as ld
+    from lvislam_tpu_torch.models.vio import estimator as est
+    from lvislam_tpu_torch.models.vio import feature_manager as fm
+    from lvislam_tpu_torch.models.vio import feature_tracker as ft
+    from lvislam_tpu_torch.ops import ba
+    from lvislam_tpu_torch.utils import synthetic as syn
+
+    lio = LioConfig(
+        n_scan=4, horizon=900, point_capacity=4096,
+        caps=mapping.LioCaps(
+            max_keyframes=64, kf_corner=256, kf_surf=1024, sel_keyframes=16,
+            map_corner=4096, map_surf=16384, scan_corner=512, scan_surf=2048,
+            max_loops=8, max_gps=8, loop_submap=4096, icp_iters=10,
+            pallas_knn=kernels, pallas_gn=False),
+        params=mapping.LioParams(
+            keyframeAddingDistThreshold=0.3, keyframeAddingAngleThreshold=0.1,
+            livox_keyframe_interval=0.5, degeneracyEigenThreshold=25.0,
+            nnRefreshEvery=2, mapRebuildEvery=1, gatherOncePerScan=kernels),
+        loop_every_n_scans=20,
+    )
+    cam = CameraIntrinsics(model_type="PINHOLE", gamma1=200.0, gamma2=200.0, u0=160.0,
+                           v0=120.0, k1=0.0, k2=0.0, p1=0.0, p2=0.0, image_width=320,
+                           image_height=240)
+    qic = np.roll(Rsc.from_matrix(syn.R_CAM_BODY).as_quat(), 1)
+    return lvi.LviConfig(
+        lio=lio,
+        vio_caps=fm.VioCaps(window=10, max_features=128, imu_buf=32, frame_features=64),
+        vio_params=est.VioParams(g_norm=syn.GRAVITY),
+        ba=ba.BAConfig(window=10, max_features=128, iterations=4, estimate_td=False,
+                       estimate_extrinsic=False, solver="schur"),
+        tracker=ft.TrackerParams(max_cnt=64, min_dist=16, klt_levels=2, klt_half=7,
+                                 klt_iters=20, equalize=False),
+        camera=cam,
+        loop_caps=ld.LoopCaps(max_keyframes=128, window_points=64, extra_points=128,
+                              recent_exclude=10, min_loop_matches=15),
+        image_height=240, image_width=320, use_lidar_depth=True, lidar_skip=1,
+        use_loop_detector=False, qic=tuple(qic.tolist()), mapping_process_interval=0.15,
+    )
+
+
+def lvi_full_config(map_rebuild_every: int | None = None):
+    """Config 5 at the shipped scale (`bench.py:668-767`): the full-width LIO
+    configuration with K1 and K2 on, the MEI 1024x576 rig with
+    `TrackerParams()` (CLAHE on: K3, K4), VIO window 10 x 150 features, BA
+    4 iterations "schur", the loop detector on with the trained vocabulary,
+    lidar_skip 3, throttle 0.15 s."""
+    import dataclasses
+
+    import numpy as np
+    from scipy.spatial.transform import Rotation as Rsc
+
+    from lvislam_tpu_torch.core.config import CameraIntrinsics
+    from lvislam_tpu_torch.models import pipeline as lvi
+    from lvislam_tpu_torch.models.loop import loop_detector as ld
+    from lvislam_tpu_torch.models.vio import estimator as est
+    from lvislam_tpu_torch.models.vio import feature_manager as fm
+    from lvislam_tpu_torch.models.vio import feature_tracker as ft
+    from lvislam_tpu_torch.ops import ba
+    from lvislam_tpu_torch.utils import synthetic as syn
+
+    lio = full_width_config()
+    lio.upload_batch = 1
+    if map_rebuild_every is not None:
+        lio.params = dataclasses.replace(lio.params, mapRebuildEvery=map_rebuild_every)
+    cam = CameraIntrinsics()
+    qic = np.roll(Rsc.from_matrix(syn.R_CAM_BODY).as_quat(), 1)
+    return lvi.LviConfig(
+        lio=lio,
+        vio_caps=fm.VioCaps(window=10, max_features=150, imu_buf=32, frame_features=150),
+        vio_params=est.VioParams(g_norm=syn.GRAVITY),
+        ba=ba.BAConfig(window=10, max_features=150, iterations=4, solver="schur",
+                       estimate_td=False, estimate_extrinsic=False),
+        tracker=ft.TrackerParams(), camera=cam,
+        loop_caps=ld.LoopCaps(max_keyframes=128, window_points=150, extra_points=256,
+                              recent_exclude=10, min_loop_matches=25),
+        image_height=cam.image_height, image_width=cam.image_width,
+        use_lidar_depth=True, lidar_skip=3, use_loop_detector=True,
+        mapping_process_interval=0.15, qic=tuple(qic.tolist()),
+    )
+
+
+def loop_scene_phase(stream, dev):
+    """Phase 13: `add_and_detect` alone over the revisit scene, the port's
+    default draws, against the JAX CPU run's accepted pairs."""
+    import numpy as np
+    import torch
+
+    from lvislam_tpu_torch.models.loop import loop_detector as ld
+    from lvislam_tpu_torch.ops import brief, gftt
+    from lvislam_tpu_torch.utils import anchors
+    from lvislam_tpu_torch.utils import synthetic as syn
+
+    world, traj, times, imgs = stream
+    caps = ld.LoopCaps(**anchors.LOOP_SCENE["caps"])
+    db = ld.db_init(caps, device=dev)
+    found, verified, ms = [], [], []
+    z2, zb = torch.zeros((1, 2), device=dev), torch.zeros(1, dtype=torch.bool, device=dev)
+    for i, (t, img) in enumerate(zip(times, imgs)):
+        im = torch.as_tensor(img, device=dev)
+        kp, ok = gftt.detect(im, z2, zb, max_pts=caps.window_points, cell=20, border=16)
+        kp_np = kp.cpu().numpy()
+        pts, hit = syn.ray_points(world, traj, t, kp_np)
+        norm = torch.as_tensor(((kp_np - [160, 120]) / 200.0).astype(np.float32), device=dev)
+        valid = ok & torch.as_tensor(hit, device=dev)
+        pts = torch.as_tensor(pts, device=dev)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        db, cand = ld.add_and_detect(db, im, kp, norm, pts, valid, t, caps, focal=200.0)
+        end.record()
+        torch.cuda.synchronize()
+        ms.append(start.elapsed_time(end))
+        if int(cand.old_index) >= 0:
+            verified.append([i, int(cand.old_index), int(cand.n_matches)])
+        if bool(cand.found):
+            found.append([i, int(cand.old_index)])
+    ref = anchors.LOOP_SCENE
+    gate = caps.min_loop_matches
+    card_v, jax_v = {v[0]: v for v in verified}, {v[0]: v for v in ref["verified"]}
+    # where the card verified another old slot than JAX: the card's top five
+    # eligible (slot, BoW score) of that frame, recomputed as add_and_detect
+    # scored them (the database holds every frame's bag, slot = frame here)
+    other_slot = {}
+    for i in sorted(card_v):
+        if i in jax_v and card_v[i][1] != jax_v[i][1]:
+            sc = brief.bow_scores(db.bags[i], db.bags).cpu().numpy()[: i - caps.recent_exclude]
+            top = np.argsort(-sc, kind="stable")[:5]
+            other_slot[i] = [[int(k), float(sc[k])] for k in top]
+    exact = found == ref["pairs"]
+    log("loop_db", frames=len(times), pairs=found, jax_pairs=ref["pairs"], exact=exact,
+        verified=verified, jax_verified=ref["verified"], inserts=int(db.count),
+        other_slot_scores=other_slot,
+        ms_per_add_and_detect=round(float(np.mean(ms[1:])), 3),
+        ms_max=round(float(np.max(ms)), 3))
+    if int(db.count) != len(times):
+        raise AssertionError(f"loop_db: {int(db.count)} inserts for {len(times)} frames")
+    if ref["pairs"] and not found:
+        raise AssertionError(f"loop_db: no loop accepted, JAX accepts {ref['pairs']}")
+    if any(i - o < caps.recent_exclude for i, o in found):
+        raise AssertionError(f"loop_db: a pair closer than recent_exclude: {found}")
+    if not exact:
+        # tolerated only where rounding moved one PnP verification across
+        # min_loop_matches: one pair differs, both runs verified that frame
+        # against the same old slot, and the card's inliers are within 2 of
+        # the gate
+        diff = ([p for p in found if p not in ref["pairs"]]
+                + [p for p in ref["pairs"] if p not in found])
+        i, o = diff[0]
+        card_n, jax_n = card_v.get(i, [i, -1, -1]), jax_v.get(i, [i, -1, -1])
+        print(f"  loop_db: pairs differ from JAX at {diff}; frame {i} inliers: card "
+              f"{card_n[2]} (slot {card_n[1]}), JAX {jax_n[2]} (slot {jax_n[1]}), "
+              f"gate > {gate}", flush=True)
+        if not (len(diff) == 1 and card_n[1] == jax_n[1] == o and abs(card_n[2] - gate) <= 2):
+            raise AssertionError(f"loop_db: pairs {found} against JAX {ref['pairs']}")
+    return float(np.mean(ms[1:]))
+
+
+def watch_system(sys_):
+    """Instrument a fused system's two handlers: per processed scan and
+    frame, the host syncs and the launches of K1-K4 inside it; per frame,
+    the lidar seed's availability and the summary. Returns the record."""
+    from lvislam_tpu_torch.core import hostsync
+    from lvislam_tpu_torch.ops import clahe
+    from lvislam_tpu_torch.ops import gn_partials as gnp
+    from lvislam_tpu_torch.ops import knn_tail as kt
+
+    rec = {"scans": [], "frames": []}
+    counters = lambda: (hostsync.COUNT, kt.LAUNCHES, gnp.LAUNCHES, clahe.HIST_LAUNCHES,
+                        clahe.APPLY_LAUNCHES)
+    on_lidar, on_image, lidar_seed = sys_._on_lidar, sys_._on_image, sys_._lidar_seed
+    seeded = [False]
+
+    def lidar(stamp, scan):
+        n0, c0 = len(sys_.trajectory), counters()
+        on_lidar(stamp, scan)
+        if len(sys_.trajectory) > n0:
+            rec["scans"].append((stamp, *[b - a for a, b in zip(c0, counters())]))
+
+    def image(stamp, msg):
+        n0, c0 = sys_.vio_frames, counters()
+        seeded[0] = False
+        on_image(stamp, msg)
+        if sys_.vio_frames > n0:
+            s = sys_.frame_summary
+            rec["frames"].append((stamp, *[b - a for a, b in zip(c0, counters())],
+                                  seeded[0], bool(s[17] > 0.5), bool(s[18] > 0.5)))
+
+    def seed(stamp):
+        out = lidar_seed(stamp)
+        seeded[0] = out is not None
+        return out
+
+    sys_._on_lidar, sys_._on_image, sys_._lidar_seed = lidar, image, seed
+    return rec
+
+
+def lvi_summary(sys_, rec, traj, t_lo: float):
+    """Numbers of a fused run: ATE of `trajectory` against the truth, the
+    init frame and path, and per processed scan / frame (stamps >= t_lo)
+    the handlers' ms (`MetricsLogger`), host syncs and kernel launches."""
+    import numpy as np
+
+    from lvislam_tpu_torch.utils.metrics import ate_rmse
+
+    est = np.stack([x6[3:6] for _, x6 in sys_.trajectory]).astype(np.float64)
+    gt = np.stack([traj.pose(np.array([t]))[0][0] for t, _ in sys_.trajectory])
+    init = next(((k + 1, "lidar_seed" if f[6] else "visual")
+                 for k, f in enumerate(rec["frames"]) if f[7]), (None, None))
+    scans = [r for r in rec["scans"] if r[0] >= t_lo]
+    frames = [r for r in rec["frames"] if r[0] >= t_lo]
+    done = {t for t, *_ in sys_.trajectory}
+    lid = [r["dt"] * 1e3 for r in sys_.metrics.records
+           if r["stage"] == "lidar" and r["stamp"] >= t_lo and r["stamp"] in done]
+    img = [r["dt"] * 1e3 for r in sys_.metrics.records
+           if r["stage"] == "image" and r["stamp"] >= t_lo]
+    per = lambda rows, k: float(np.mean([r[k] for r in rows])) if rows else 0.0
+    return dict(
+        ate_m=float(ate_rmse(est, gt, align=True)), init_frame=init[0], init_path=init[1],
+        trajectory_points=len(sys_.trajectory), vio_frames=sys_.vio_frames,
+        failure_count=int(sys_.vio.failure_count), keyframes=int(sys_.lio.state.kf_count),
+        vins_odom=sys_.vins_odom is not None, scans_timed=len(scans), frames_timed=len(frames),
+        lidar_ms_mean=float(np.mean(lid)), lidar_ms_p50=float(np.median(lid)),
+        image_ms_mean=float(np.mean(img)), image_ms_p50=float(np.median(img)),
+        syncs_per_scan=per(scans, 1), syncs_per_frame=per(frames, 1),
+        K1_per_scan=per(scans, 2), K2_per_scan=per(scans, 3),
+        K3_per_frame=per(frames, 4), K4_per_frame=per(frames, 5),
+        launches={k: sum(r[i] for r in rec["scans"] + rec["frames"])
+                  for k, i in (("K1", 2), ("K2", 3), ("K3", 4), ("K4", 5))},
+        sha=sha256(np.stack([np.r_[t, x6] for t, x6 in sys_.trajectory])),
+    )
+
+
+def run_lvi(cfg, data, dev, warm_s: float, end_s: float):
+    """A fused system through its entry points: `feed_*` of [0, warm_s),
+    `run`, then [warm_s, end_s) timed. Returns (system, record, wall s)."""
+    import torch
+
+    from lvislam_tpu_torch.models.pipeline import LviSystem
+    from lvislam_tpu_torch.utils import synthetic as syn
+
+    sync = torch.cuda.synchronize if torch.device(dev).type == "cuda" else (lambda: None)
+    sys_ = LviSystem(cfg, device=dev)
+    rec = watch_system(sys_)
+    syn.feed_lvi(sys_, data, 0.0, warm_s)
+    sys_.run()
+    syn.feed_lvi(sys_, data, warm_s, end_s)
+    sync()
+    t0 = time.perf_counter()
+    sys_.run()
+    sync()
+    return sys_, rec, time.perf_counter() - t0
+
+
+def fmt_run(r: dict) -> dict:
+    return {k: (round(v, 5) if isinstance(v, float) else v) for k, v in r.items()
+            if k != "launches"}
+
+
+def lvi_parity_phase(stream, dev):
+    """Phase 14: config 5 at the parity scale through `LviSystem`, 2 s warm
+    then 10 s timed; gated against the JAX package's clean-CPU readings of
+    the same sequence; the first 4 s repeated bit for bit."""
+    import numpy as np
+
+    from lvislam_tpu_torch.utils import anchors
+    from lvislam_tpu_torch.utils import synthetic as syn
+
+    ref = anchors.LVI_PARITY
+    cfg = lvi_parity_config()
+    cfg_cpu = anchors.config_sha256(lvi_parity_config(kernels=False))
+    data = stream.get()
+    seq = syn.lvi_sequence_sha256(data)
+    if cfg_cpu != ref["config_sha256"] or seq != ref["stream_sha256"]:
+        raise AssertionError(f"lvi_parity: config {cfg_cpu} / stream {seq} are not the "
+                             f"anchor's ({ref['config_sha256']} / {ref['stream_sha256']})")
+    with open(os.path.join(ROOT, "bench_anchors.json")) as f:
+        batched = float(json.load(f)["lvi_ate_cpu_ref_m"])  # the batched replay's
+    traj = syn.figure8_trajectory(scale=3.0, period=30.0)
+    sys_, rec, wall = run_lvi(cfg, data, dev, LVI_WARM_S, LVI_PARITY_S)
+    r = lvi_summary(sys_, rec, traj, LVI_WARM_S)
+    limit = LVI_BAND * max(ref["ate_m"], batched)
+    log("lvi_parity", seconds=LVI_PARITY_S, timed_s=LVI_PARITY_S - LVI_WARM_S,
+        rtf=round((LVI_PARITY_S - LVI_WARM_S) / wall, 4), wall_s=round(wall, 2),
+        ate_limit_m=round(limit, 5), jax_interactive_ate_m=round(ref["ate_m"], 5),
+        jax_batched_ate_m=batched, jax_init_frame=ref["init_frame"],
+        jax_init_path=ref["init_path"], config_sha256=anchors.config_sha256(cfg),
+        cpu_config_sha256=cfg_cpu, stream_sha256=seq, stream_wait_s=round(stream.waited_s, 1),
+        **fmt_run(r))
+    if not (r["init_frame"] and r["failure_count"] == 0 and r["vins_odom"]):
+        raise AssertionError(f"lvi_parity: VIO init frame {r['init_frame']}, "
+                             f"failures {r['failure_count']}, vins_odom {r['vins_odom']}")
+    if not r["ate_m"] <= limit:
+        raise AssertionError(f"lvi_parity: ATE {r['ate_m']:.4f} m over {limit:.4f} m")
+    # determinism: the first 4 s again
+    sys2, _, _ = run_lvi(cfg, data, dev, LVI_WARM_S, LVI_REPEAT_S)
+    rows = lambda s: np.stack([np.r_[t, x6] for t, x6 in s.trajectory if t < LVI_REPEAT_S])
+    a, b = rows(sys_), rows(sys2)
+    log("lvi_parity_determinism", seconds=LVI_REPEAT_S, rows=len(b), sha256=sha256(b),
+        identical=bool(np.array_equal(a, b)))
+    if not np.array_equal(a, b):
+        raise AssertionError("lvi_parity determinism: the first 4 s differ")
+    return r
+
+
+def lvi_full_phase(stream, dev):
+    """Phase 15: config 5 at the shipped scale, 2 s warm then 5 s timed."""
+    from lvislam_tpu_torch.utils import synthetic as syn
+
+    data = stream.get()
+    traj = syn.figure8_trajectory(scale=3.0, period=30.0)
+    runs = {}
+    for rebuild in (None, 1):
+        cfg = lvi_full_config(rebuild)
+        sys_, rec, wall = run_lvi(cfg, data, dev, LVI_WARM_S, LVI_FULL_S)
+        r = lvi_summary(sys_, rec, traj, LVI_WARM_S)
+        after = [f for f in rec["frames"] if f[7]]
+        kf_after = sum(1 for f in after if f[8])
+        r.update(rtf=(LVI_FULL_S - LVI_WARM_S) / wall, wall_s=wall,
+                 loop_inserts=int(sys_.loop_db.count), keyframes_after_init=kf_after,
+                 loops=int(sys_.lio.state.n_loops),
+                 map_rebuild_every=cfg.lio.params.mapRebuildEvery)
+        runs[rebuild] = (r, rec)
+        log("lvi_full" if rebuild is None else "lvi_full_rebuild1", seconds=LVI_FULL_S,
+            timed_s=LVI_FULL_S - LVI_WARM_S, ate_limit_m=LVI_FULL_ATE_M,
+            stream_wait_s=round(stream.waited_s, 1), **fmt_run(r))
+        if r["ate_m"] <= LVI_FULL_ATE_M:
+            break
+        print(f"  lvi_full: ATE {r['ate_m']:.4f} m over {LVI_FULL_ATE_M} m with "
+              f"mapRebuildEvery={r['map_rebuild_every']}: rerun with mapRebuildEvery=1",
+              flush=True)
+    r, rec = runs[rebuild]
+    if not (r["init_frame"] and r["failure_count"] == 0):
+        raise AssertionError(f"lvi_full: VIO init frame {r['init_frame']}, "
+                             f"failures {r['failure_count']}")
+    if r["loop_inserts"] != r["keyframes_after_init"]:
+        raise AssertionError(f"lvi_full: {r['loop_inserts']} loop-database inserts for "
+                             f"{r['keyframes_after_init']} keyframes after initialization")
+    if min(r["launches"].values()) <= 0:
+        raise AssertionError(f"lvi_full: a kernel was never launched {r['launches']}")
+    if not r["ate_m"] <= LVI_FULL_ATE_M:
+        raise AssertionError(f"lvi_full: ATE {r['ate_m']:.4f} m over {LVI_FULL_ATE_M} m")
+    return runs[None][0], r
+
+
+def lvi_loop_phase(stream, dev):
+    """`--loop`: the 38 s revisit arm (`bench.py:770-887`) on the parity
+    configuration with 192 keyframes and 16 loop slots: at least one loop
+    factor accepted; the loop count and the keyframe ATE."""
+    import dataclasses
+
+    import numpy as np
+
+    from lvislam_tpu_torch.utils import synthetic as syn
+    from lvislam_tpu_torch.utils.metrics import ate_rmse
+
+    cfg = lvi_parity_config()
+    cfg.lio.caps = dataclasses.replace(cfg.lio.caps, max_keyframes=192, max_loops=16)
+    data = stream.get()
+    traj = syn.figure8_trajectory(scale=3.0, period=30.0)
+    sys_, rec, wall = run_lvi(cfg, data, dev, LVI_WARM_S, LVI_LOOP_S)
+    r = lvi_summary(sys_, rec, traj, LVI_WARM_S)
+    st = sys_.lio.state
+    n_kf = int(st.kf_count)
+    kf_t = st.kf_time[:n_kf].cpu().numpy()
+    kf_p = st.kf_trans[:n_kf].cpu().numpy().astype(np.float64)
+    gt_kf = np.stack([traj.pose(np.array([t]))[0][0] for t in kf_t])
+    loops = int(st.n_loops)
+    log("lvi_loop", seconds=LVI_LOOP_S, loops=loops,
+        kf_ate_m=round(float(ate_rmse(kf_p, gt_kf, align=True)), 5),
+        rtf=round((LVI_LOOP_S - LVI_WARM_S) / wall, 4), **fmt_run(r))
+    if loops < 1:
+        raise AssertionError("lvi_loop: no loop factor accepted")
+
+
 def main() -> int:
     import torch
 
@@ -1479,16 +2001,37 @@ def main() -> int:
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     print(smi, flush=True)
     sys.path.insert(0, ROOT)
-    import numpy as np
-
     import lvislam_tpu_torch  # noqa: F401  (full-f32 math settings)
-    from lvislam_tpu_torch.ops import _kernels
-    from lvislam_tpu_torch.ops import gn_partials as gnp
-    from lvislam_tpu_torch.ops import knn_tail as kt
-    from lvislam_tpu_torch.utils.metrics import ate_rmse
 
     torch.use_deterministic_algorithms(True)
     dev = torch.device("cuda", 0)
+    pool = stream_pool()
+    try:
+        return run_phases(pool, dev)
+    finally:
+        pool.shutdown(wait=True, cancel_futures=True)
+
+
+def run_phases(pool, dev) -> int:
+    import numpy as np
+    import torch
+
+    from lvislam_tpu_torch.core.config import CameraIntrinsics
+    from lvislam_tpu_torch.ops import _kernels
+    from lvislam_tpu_torch.ops import gn_partials as gnp
+    from lvislam_tpu_torch.ops import knn_tail as kt
+    from lvislam_tpu_torch.utils import synthetic as syn
+    from lvislam_tpu_torch.utils.metrics import ate_rmse
+
+    # every phase's stream, raycast by the pool in the order they are needed
+    streams = {"scans": Prefetch(pool, *scan_jobs()),
+               "tracker": Prefetch(pool, *tracker_frame_jobs()),
+               "vio_fixture": Prefetch(pool, *vio_input_jobs(False)),
+               "vio_full": Prefetch(pool, *vio_input_jobs(True)),
+               "parity": lvi_stream(pool, duration=LVI_PARITY_S),
+               "full": lvi_stream(pool, duration=LVI_FULL_S, horizon=6000, cam=CameraIntrinsics())}
+    if "--loop" in sys.argv:
+        streams["loop"] = lvi_stream(pool, duration=LVI_LOOP_S)
     log("device", name=torch.cuda.get_device_name(0), count=torch.cuda.device_count(),
         torch=torch.__version__, cuda=torch.version.cuda)
 
@@ -1508,9 +2051,8 @@ def main() -> int:
                                gn_pose(x6))
 
     # ---- 3. full-width replay through the port's entry point ----
-    t0 = time.perf_counter()
-    scans = gen_scans()
-    log("scans", n=len(scans), gen_seconds=round(time.perf_counter() - t0, 1))
+    scans = streams["scans"].get()
+    log("scans", n=len(scans), wait_seconds=round(streams["scans"].waited_s, 1))
     gt = np.stack([s[0]["true_pos"] for s in scans])
     cfg = full_width_config()
     kt.LAUNCHES = 0
@@ -1560,10 +2102,9 @@ def main() -> int:
     from lvislam_tpu_torch.ops import clahe
     from lvislam_tpu_torch.utils.anchors import TRACKER_SEQUENCE as ref
 
-    t0 = time.perf_counter()
-    cam, world, traj, ts, frames = tracker_frames()
+    cam, world, traj, ts, frames = streams["tracker"].get()
     log("frames", n=len(frames), shape=f"{frames[0].shape[0]}x{frames[0].shape[1]}",
-        model=cam.model_type, gen_seconds=round(time.perf_counter() - t0, 1))
+        model=cam.model_type, wait_seconds=round(streams["tracker"].waited_s, 1))
     k34 = check_clahe_kernels(rig_clahe_images(frames[0]), dev)
 
     # ---- 6. the tracker sequence through FeatureTracker ----
@@ -1634,17 +2175,15 @@ def main() -> int:
     imu_rate_prediction(dev)
 
     # ---- 10. VIO at the fixture's size ----
-    t0 = time.perf_counter()
-    stream = vio_inputs(False)
+    stream = streams["vio_fixture"].get()
     log("vio_frames", n=len(stream[4]), shape="240x320", imu_samples=len(stream[2]),
-        gen_seconds=round(time.perf_counter() - t0, 1))
+        wait_seconds=round(streams["vio_fixture"].waited_s, 1))
     check_vio("vio_fixture", vio_config(False), stream, anchors.VIO_FIXTURE, dev, n_prof)
 
     # ---- 11. VIO at full width: the EuRoC cam0 size, CLAHE on ----
-    t0 = time.perf_counter()
-    stream = vio_inputs(True)
+    stream = streams["vio_full"].get()
     log("vio_frames", n=len(stream[4]), shape="480x752", imu_samples=len(stream[2]),
-        gen_seconds=round(time.perf_counter() - t0, 1))
+        wait_seconds=round(streams["vio_full"].waited_s, 1))
     k34_vio = check_clahe_kernels({"euroc": (stream[4][0], "general")}, dev)["euroc"]
     clahe_alone(stream[4][0], dev, alone_reporter(alone), sweep=False, tag="_480x752")
     vio_k3, vio_k4 = check_vio("vio_full", vio_config(True), stream, anchors.VIO_FULL_WIDTH,
@@ -1656,6 +2195,23 @@ def main() -> int:
 
     # ---- 12. BA alone at the reference shape ----
     ba_alone(dev)
+
+    # ---- 13. the visual loop detector alone ----
+    loop_ms = loop_scene_phase(syn.loop_scene(), dev)
+
+    # ---- 14. config 5 at the parity scale ----
+    par = lvi_parity_phase(streams["parity"], dev)
+
+    # ---- 15. config 5 at the shipped scale ----
+    full, full_gated = lvi_full_phase(streams["full"], dev)
+    if "--loop" in sys.argv:
+        lvi_loop_phase(streams["loop"], dev)
+    for key in ("K1", "K2", "K3", "K4"):
+        by_path[key]["lvi_parity"] = par["launches"][key]
+        by_path[key]["lvi_full"] = full["launches"][key]
+        if full_gated is not full:
+            by_path[key]["lvi_full_rebuild1"] = full_gated["launches"][key]
+    launches = {k: sum(v.values()) for k, v in by_path.items()}
 
     def timing(key):
         a = alone[key]

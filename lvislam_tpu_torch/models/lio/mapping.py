@@ -789,3 +789,20 @@ def loop_closure_step(state: LioMapState, caps: LioCaps, params: LioParams):
         found=torch.zeros((), dtype=torch.bool, device=dev), kf_from=cur,
         kf_to=torch.full((), -1, dtype=torch.long, device=dev),
         fitness=torch.full((), math.inf, device=dev))
+
+
+def loop_closure_external(state: LioMapState, cur, old, caps: LioCaps, params: LioParams):
+    """An external (visual) loop candidate, keyframes `cur` -> `old`, through
+    the same submap ICP verification (`detectLoopClosureExternal`,
+    `mapOptimization.cpp:665-741`). One host read: whether the pair is
+    valid. Returns (state, LoopResult)."""
+    dev = state.x6.device
+    cur = torch.as_tensor(cur, dtype=torch.long, device=dev)
+    old = torch.as_tensor(old, dtype=torch.long, device=dev)
+    ok = (cur < state.kf_count) & (old >= 0) & (old < state.kf_count) & (cur != old)
+    if host_bool(ok):
+        return _loop_icp(state, cur, old, caps, params)
+    return state, LoopResult(
+        found=torch.zeros((), dtype=torch.bool, device=dev), kf_from=cur,
+        kf_to=torch.full((), -1, dtype=torch.long, device=dev),
+        fitness=torch.full((), math.inf, device=dev))

@@ -1,0 +1,179 @@
+"""One camera frame of the fused LVI system — port of
+``lvislam_tpu.models.vio.frame_step`` (`_sizes`, `pack_frame`,
+`frame_step`).
+
+The host packs the frame, its IMU window, the vins_world -> vins_body TF,
+the ring's 5 s freshness mask and the lidar-seeded init payload into one
+int16 buffer (``pack_frame``, byte for byte the JAX package's): one
+host-to-device copy a frame. ``frame_step`` unpacks it on the device and
+runs the tracker step (CLAHE: kernels K3 and K4 on the card), the lidar
+depth registration against the device-resident cloud ring, `process_imu`
+and `process_image`, and returns a 21-float summary for the one readback.
+
+JAX's ``lax.cond(imu_n > 0, ...)`` is a host branch on the count the host
+packed. The estimator's window fill comes from the caller's host copy
+(`frame_count`), as `VioRunner` passes it. The pipelined two-stage variant
+(`pack_track`, `track_stage`, `pack_estimate`, `estimate_stage`) is not
+ported (multi-device placement).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ...core.config import CameraIntrinsics
+from ...ops import ba
+from . import estimator as est
+from . import feature_manager as fm
+from . import feature_tracker as ft
+
+_MISC = 12  # t, imu_n, depth_on, body_trans(3), body_quat(4), seed_avail
+
+
+def _sizes(caps: fm.VioCaps, H: int, W: int, slots: int):
+    assert (H * W) % 2 == 0
+    M = caps.imu_buf
+    W1 = caps.window + 1
+    nf = M * 7 + _MISC + slots + W1 * 10 + 6
+    return M, W1, nf, H * W // 2 + nf * 2
+
+
+def pack_frame(
+    caps: fm.VioCaps,
+    img: np.ndarray,  # (H, W) uint8, or float in [0, 1] (quantized here)
+    t: float,
+    imu_dts: np.ndarray, imu_accs: np.ndarray, imu_gyrs: np.ndarray,
+    imu_n: int,
+    depth_fresh: np.ndarray,  # (S,) bool — ring slots younger than 5 s
+    body_trans, body_quat,  # vins_world -> vins_body TF (or None)
+    seed: dict | None,  # lidar-seeded init payload (numpy) or None
+) -> np.ndarray:
+    """The frame's one upload: the image as bytes, then float32 fields
+    bit-cast into int16 (layout of the JAX package's ``pack_frame``)."""
+    H, W = img.shape
+    S = len(depth_fresh)
+    M, W1, nf, L = _sizes(caps, H, W, S)
+    buf = np.zeros(L, np.int16)
+    if img.dtype != np.uint8:
+        img = np.clip(np.round(img * 255.0), 0, 255).astype(np.uint8)
+    buf[: H * W // 2] = img.reshape(-1).view(np.int16)
+    f = buf[H * W // 2:].view(np.float32)
+    imu = f[: M * 7].reshape(M, 7)
+    n = min(int(imu_n), M)
+    if n > 0:
+        imu[:n, 0] = imu_dts[:n]
+        imu[:n, 1:4] = imu_accs[:n]
+        imu[:n, 4:7] = imu_gyrs[:n]
+        imu[n:, 1:4] = imu[max(n - 1, 0), 1:4]
+        imu[n:, 4:7] = imu[max(n - 1, 0), 4:7]
+    misc = f[M * 7: M * 7 + _MISC]
+    misc[0] = t
+    misc[1] = n
+    misc[2] = float(body_trans is not None)
+    if body_trans is not None:
+        misc[3:6] = body_trans
+        misc[6:10] = body_quat
+    else:
+        misc[6] = 1.0
+    misc[10] = float(seed is not None)
+    f[M * 7 + _MISC: M * 7 + _MISC + S] = depth_fresh.astype(np.float32)
+    if seed is not None:
+        sd = f[M * 7 + _MISC + S:]
+        sd[: W1 * 3] = np.asarray(seed["Ps"], np.float32).reshape(-1)
+        sd[W1 * 3: W1 * 7] = np.asarray(seed["Qs"], np.float32).reshape(-1)
+        sd[W1 * 7: W1 * 10] = np.asarray(seed["Vs"], np.float32).reshape(-1)
+        sd[W1 * 10: W1 * 10 + 3] = np.asarray(seed["ba"], np.float32)
+        sd[W1 * 10 + 3:] = np.asarray(seed["bg"], np.float32)
+    return buf
+
+
+def frame_step(
+    tracker: ft.TrackerState,
+    vio: est.VioState,
+    buf: torch.Tensor,  # (L,) int16 from pack_frame, on the device
+    depth_clouds: torch.Tensor,  # (S, P, 3) device-resident ring (VINS world)
+    depth_valid: torch.Tensor,  # (S, P) bool
+    tparams: ft.TrackerParams,
+    cam: CameraIntrinsics,
+    caps: fm.VioCaps,
+    vparams: est.VioParams,
+    cfg: ba.BAConfig,
+    height: int,
+    width: int,
+    use_depth: bool = True,
+    rolling_shutter_tr: float = 0.0,
+    *,
+    frame_count: int,  # the caller's host copy of vio.frame_count
+    imu_n: int,  # the IMU count the host packed
+    seed_available: bool,  # whether the host packed a seed
+    sampler: ft.Sampler | None = None,  # RANSAC draws (tracker, estimator)
+):
+    """Returns (tracker', vio', tout, depth, summary (21,) f32, frame_count'):
+    summary = [pos(3), quat(4), vel(3), ba(3), bg(3), td, initialized,
+    is_keyframe, failure_count, n_tracked]; frame_count' is the host count
+    to pass with the next frame."""
+    H, W = height, width
+    S = depth_clouds.shape[0]
+    M, W1, nf, L = _sizes(caps, H, W, S)
+
+    img = buf[: H * W // 2].view(torch.uint8).reshape(H, W).to(torch.float32) * (1.0 / 255.0)
+    f = buf[H * W // 2:].view(torch.float32)
+    imu = f[: M * 7].reshape(M, 7)
+    misc = f[M * 7: M * 7 + _MISC]
+    t = misc[0]
+    fresh = f[M * 7 + _MISC: M * 7 + _MISC + S] > 0.5
+    body_avail = misc[2] > 0.5
+    body_trans = misc[3:6]
+    body_quat = misc[6:10]
+    sd = f[M * 7 + _MISC + S:]
+    seed = dict(
+        available=seed_available,
+        Ps=sd[: W1 * 3].reshape(W1, 3),
+        Qs=sd[W1 * 3: W1 * 7].reshape(W1, 4),
+        Vs=sd[W1 * 7: W1 * 10].reshape(W1, 3),
+        ba=sd[W1 * 10: W1 * 10 + 3],
+        bg=sd[W1 * 10 + 3: W1 * 10 + 6],
+    )
+
+    # ---- feature tracking (CLAHE + LK + F-RANSAC + refill) ----
+    tracker2, tout = ft.tracker_step(tracker, img, t, tparams, cam, sampler=sampler)
+
+    # ---- exchange 2: the lidar depth channel ----
+    depth = torch.full((tparams.max_cnt,), -1.0, dtype=torch.float32, device=buf.device)
+    if use_depth:
+        depth_on = body_avail & torch.any(fresh)
+        d = ft.register_depth(
+            tout.norm, tout.valid,
+            depth_clouds.reshape(S * depth_clouds.shape[1], 3),
+            (depth_valid & fresh[:, None]).reshape(-1),
+            body_trans, body_quat,
+        )
+        depth = torch.where(depth_on, d, depth)
+
+    # ---- inter-frame IMU (window already td-aligned by the host); an
+    # empty window (first frame, stream gap) preintegrates nothing ----
+    if imu_n > 0:
+        dts = torch.where(torch.arange(M, device=buf.device) < imu_n, imu[:, 0], 0.0)
+        vio = est.process_imu(vio, dts, imu[:, 1:4], imu[:, 4:7], caps, vparams,
+                              frame_count=frame_count)
+
+    # ---- estimator step ----
+    rt = None
+    if rolling_shutter_tr > 0:
+        rt = tout.uv[:, 1] * (rolling_shutter_tr / H)
+    vio3, vout = est.process_image(
+        vio, tout.ids, tout.norm, tout.vel, depth, tout.valid, seed,
+        caps, vparams, cfg, rt=rt, frame_count=frame_count, sampler=sampler,
+    )
+    fc = vout["frame_count"]
+    j = min(fc, caps.window)
+    f32 = lambda x: x.to(torch.float32)[None]
+    summary = torch.cat([
+        vout["pos"], vout["quat"], vout["vel"],
+        vio3.ws.Bas[j], vio3.ws.Bgs[j],
+        vio3.ws.td[None],
+        f32(vout["initialized"]), f32(vout["is_keyframe"]),
+        f32(vio3.failure_count), f32(tout.n_tracked),
+    ])
+    return tracker2, vio3, tout, depth, summary, fc

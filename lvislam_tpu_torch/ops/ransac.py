@@ -1,5 +1,6 @@
-"""Batched-hypothesis RANSAC — port of ``lvislam_tpu.ops.ransac`` (the
-fundamental-matrix half, which the feature tracker runs).
+"""Batched-hypothesis RANSAC — port of ``lvislam_tpu.ops.ransac``: the
+fundamental-matrix model the feature tracker runs and the PnP model the
+loop detector verifies candidates with.
 
 ``fundamental_ransac`` is cv::findFundamentalMat(FM_RANSAC, F_THRESHOLD)
 as the tracker's outlier rejection uses it (`feature_tracker.cpp:209-242`
@@ -12,7 +13,8 @@ the tests feed JAX's own draws through ``idx``. Without ``idx`` the port
 draws by Gumbel top-k over ``log(w)`` from a ``torch.Generator`` seeded
 with ``seed`` on every call: the same validity mask gives the same
 hypotheses, as JAX's fixed key does, and fewer than 8 valid points (even
-none) still give indices instead of an error.
+none) still give indices instead of an error. ``pnp_ransac`` takes its
+draws the same way (6 points a hypothesis, JAX's key ``seed + 1``).
 """
 
 from __future__ import annotations
@@ -21,6 +23,9 @@ import math
 from typing import NamedTuple
 
 import torch
+
+from ..core import lie
+from . import dense
 
 
 def hypothesis_weights(valid: torch.Tensor) -> torch.Tensor:
@@ -135,3 +140,98 @@ def fundamental_ransac(
     counts = torch.sum(inl, dim=1)
     best = torch.argmax(counts)
     return FRansacResult(inliers=inl[best], F=F[best], n_inliers=counts[best])
+
+
+class PnPResult(NamedTuple):
+    trans: torch.Tensor  # (3,) world -> camera
+    quat: torch.Tensor  # (4,)
+    inliers: torch.Tensor  # (N,)
+    n_inliers: torch.Tensor  # ()
+
+
+def _sum_seq(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """Sum over a short axis in index order (XLA's order)."""
+    acc = x.select(dim, 0)
+    for i in range(1, x.shape[dim]):
+        acc = acc + x.select(dim, i)
+    return acc
+
+
+def _dlt_pose(X: torch.Tensor, uv: torch.Tensor):
+    """Batched 6+ point DLT for P = [R|t] from world points X (H, K, 3) and
+    normalized image points uv (H, K, 2), object points Hartley-normalized
+    first. Returns (R (H, 3, 3), t (H, 3)); R by 6 Newton steps of the polar
+    decomposition R = M (MᵀM)^(-1/2)."""
+    H, K, _ = X.shape
+    c = (_sum_seq(X, 1) / K)[:, None, :]
+    spread = _sum_seq(lie.norm3(X - c), 1) / K
+    s = math.sqrt(3.0) / torch.clamp(spread, min=1e-6)
+    X = (X - c) * s[:, None, None]
+    zeros = torch.zeros((H, K, 4), dtype=X.dtype, device=X.device)
+    Xh = torch.cat([X, torch.ones((H, K, 1), dtype=X.dtype, device=X.device)], dim=-1)
+    r1 = torch.cat([Xh, zeros, -uv[..., 0:1] * Xh], dim=-1)
+    r2 = torch.cat([zeros, Xh, -uv[..., 1:2] * Xh], dim=-1)
+    A = torch.cat([r1, r2], dim=1)  # (H, 2K, 12)
+    P = _solve_min_eigvec(A).reshape(-1, 3, 4)
+    # a proper rotation needs det(M) > 0 (cheirality: the inlier gate)
+    P = P * torch.sign(torch.linalg.det(P[:, :, :3]))[:, None, None]
+    M = P[:, :, :3]
+    scale = torch.clamp(torch.linalg.det(M), min=1e-12) ** (1.0 / 3.0)
+    R = M / scale[:, None, None]
+    t = P[:, :, 3] / scale[:, None]
+    for _ in range(6):
+        R = 0.5 * (R + torch.linalg.inv_ex(R.transpose(1, 2))[0])
+    # undo the normalization: x ∝ R(s(X - c)) + t_n = s[R X + (t_n/s - R c)]
+    t = t / s[:, None] - torch.einsum("hij,hj->hi", R, c[:, 0, :])
+    return R, t
+
+
+def pnp_ransac(
+    obj_pts: torch.Tensor,  # (N, 3) world points
+    img_pts: torch.Tensor,  # (N, 2) normalized-plane observations
+    valid: torch.Tensor,  # (N,)
+    threshold: float = 10.0 / 460.0,  # reprojection gate (normalized units)
+    n_hyp: int = 128,
+    refine_iters: int = 5,
+    seed: int = 0,
+    idx: torch.Tensor | None = None,  # (n_hyp, 6) sampled indices
+    generator: torch.Generator | None = None,
+) -> PnPResult:
+    """Parallel-hypothesis PnP (cv::solvePnPRansac + iterative refine): a
+    6-point DLT a hypothesis, inliers by reprojection error and positive
+    depth, then Gauss-Newton on the best model's inliers (forward-mode
+    Jacobian). No host read."""
+    if idx is None:
+        if generator is None:
+            generator = torch.Generator(device=obj_pts.device).manual_seed(seed + 1)
+        idx = sample_indices(hypothesis_weights(valid), n_hyp, 6, generator)
+    R, t = _dlt_pose(obj_pts[idx], img_pts[idx])
+
+    Pc = torch.einsum("hij,nj->hni", R, obj_pts) + t[:, None, :]  # (H, N, 3)
+    proj = Pc[..., :2] / torch.clamp(Pc[..., 2:3], min=1e-6)
+    d = proj - img_pts[None]
+    err = torch.sqrt(d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1])
+    inl = (err < threshold) & valid[None, :] & (Pc[..., 2] > 0.05)
+    counts = torch.sum(inl, dim=1)
+    best = torch.argmax(counts)
+    Rb, tb = R[best], t[best]
+    inliers = inl[best]
+
+    q0 = lie.matrix_to_quat(Rb)
+    w = inliers[:, None].to(obj_pts.dtype)
+
+    def residual(x):
+        q = lie.quat_multiply(q0, lie.so3_exp_quat(x[:3]))
+        pc = lie.quat_rotate(q[None], obj_pts) + x[3:6][None]
+        pr = pc[..., :2] / torch.clamp(pc[..., 2:3], min=1e-6)
+        r = ((pr - img_pts) * w).reshape(-1)
+        return r, r
+
+    jac = torch.func.jacfwd(residual, has_aux=True)
+    eye6 = torch.eye(6, dtype=obj_pts.dtype, device=obj_pts.device)
+    x = torch.cat([torch.zeros(3, dtype=obj_pts.dtype, device=obj_pts.device), tb])
+    for _ in range(refine_iters):
+        J, r = jac(x)
+        x = x - dense.solve(J.T @ J + 1e-8 * eye6, J.T @ r)
+    q = lie.quat_normalize(lie.quat_multiply(q0, lie.so3_exp_quat(x[:3])))
+    return PnPResult(trans=x[3:6], quat=q, inliers=inliers, n_inliers=counts[best])

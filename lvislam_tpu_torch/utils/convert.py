@@ -4,9 +4,11 @@ Turns a JAX ``LioMapState`` (any NamedTuple or dataclass tree whose leaves
 go through ``np.asarray``), ``LioCaps``, ``LioParams``, ``LioConfig``,
 ``CameraIntrinsics``, ``TrackerParams``, ``TrackerState``, and the IMU and
 VIO side's ``FusionState``, ``PreintState``, ``WindowState``, ``Prior``,
-``FeatureTable``, ``VioState`` and their parameter dataclasses into the
-port's objects on a given device, so both implementations can start from
-one state. Works on the objects' field names only; imports nothing of JAX.
+``FeatureTable``, ``VioState``, the loop detector's ``LoopCaps`` and
+``LoopDB``, the fused system's ``LviConfig`` and ``LviSystem``, and their
+parameter dataclasses into the port's objects on a given device, so both
+implementations can start from one state. Works on the objects' field names
+only; imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -17,7 +19,9 @@ import numpy as np
 import torch
 
 from ..core.config import CameraIntrinsics
+from ..models import pipeline as lvi
 from ..models.lio import imu_fusion, mapping, pipeline
+from ..models.loop import loop_detector as ld
 from ..models.vio import estimator as est
 from ..models.vio import feature_manager as fm
 from ..models.vio import feature_tracker as ft
@@ -152,3 +156,58 @@ def vio_params_from_jax(jparams) -> est.VioParams:
 
 def ba_config_from_jax(jcfg) -> ba.BAConfig:
     return _dc(ba.BAConfig, jcfg)
+
+
+def loop_caps_from_jax(jcaps) -> ld.LoopCaps:
+    return _dc(ld.LoopCaps, jcaps)
+
+
+def loop_db_from_jax(jdb, device=None) -> ld.LoopDB:
+    return _tree(ld.LoopDB, jdb, device)
+
+
+def lvi_config_from_jax(jcfg) -> lvi.LviConfig:
+    """A JAX ``LviConfig`` -> the port's, every nested configuration
+    converted (`replay_batch` and the other fields as they are)."""
+    return _dc(
+        lvi.LviConfig, jcfg, lio=config_from_jax(jcfg.lio),
+        fusion=fusion_params_from_jax(jcfg.fusion), vio_caps=vio_caps_from_jax(jcfg.vio_caps),
+        vio_params=vio_params_from_jax(jcfg.vio_params), ba=ba_config_from_jax(jcfg.ba),
+        tracker=tracker_params_from_jax(jcfg.tracker), camera=camera_from_jax(jcfg.camera),
+        loop_caps=loop_caps_from_jax(jcfg.loop_caps),
+    )
+
+
+def lvi_system_from_jax(jsys, device=None, sampler=None) -> lvi.LviSystem:
+    """A JAX ``LviSystem`` (interactive path, no events pending) -> the
+    port's on `device`, carrying the device state (LIO map, fusion, tracker,
+    VIO, loop database, depth ring) and the host state (IMU buffers, the
+    fused odometry stream, the VIS odometry, the last fused state, frame
+    times, ring stamps and slot, td, the flags and counters)."""
+    import copy
+
+    sys_ = lvi.LviSystem(lvi_config_from_jax(jsys.cfg), device=device, sampler=sampler)
+    dev = sys_.device
+    sys_.lio.state = state_from_jax(jsys.lio.state, dev)
+    sys_.lio.scan_counter = jsys.lio.scan_counter
+    sys_.fusion = fusion_state_from_jax(jsys.fusion, dev)
+    sys_.tracker = tracker_state_from_jax(jsys.tracker, dev)
+    sys_.vio = vio_state_from_jax(jsys.vio, dev)
+    sys_.loop_db = loop_db_from_jax(jsys.loop_db, dev)
+    sys_.depth_clouds = _tensor(jsys.depth_clouds, dev)
+    sys_.depth_valid = _tensor(jsys.depth_valid, dev)
+    host = ("imu_times", "imu_gyro", "imu_acc", "imu_rpy", "last_image_time",
+            "last_lidar_time", "_last_map_time", "lidar_counter", "depth_stamps",
+            "depth_slot", "_td", "_vio_initialized", "vins_odom", "last_gps", "lio_odoms",
+            "imu_rate_odom", "_last_fused", "trajectory", "vio_frames", "frame_times")
+    for name in host:
+        setattr(sys_, name, copy.deepcopy(getattr(jsys, name)))
+    sys_.trajectory = [(t, np.asarray(x6)) for t, x6 in sys_.trajectory]
+    if sys_._ext_rot is None:  # the lidar-frame buffers alias the raw ones
+        sys_.imu_gyro_l, sys_.imu_acc_l = sys_.imu_gyro, sys_.imu_acc
+    else:
+        sys_.imu_gyro_l = copy.deepcopy(jsys.imu_gyro_l)
+        sys_.imu_acc_l = copy.deepcopy(jsys.imu_acc_l)
+    sys_._vio_frame_count = int(np.asarray(jsys.vio.frame_count))
+    sys_._fusion_initialized = bool(np.asarray(jsys.fusion.initialized))
+    return sys_

@@ -348,27 +348,42 @@ def render_camera_image(
     return img.reshape(height, width).astype(np.float32)
 
 
-def vio_stream(world: World, traj: Trajectory, duration: float, cam_rate: float = 10.0,
-               imu_rate: float = 200.0, width: int = 320, height: int = 240,
-               f: float = 200.0, cam=None):
-    """A mav0-style camera + IMU stream in memory: ideal IMU samples at
-    (i + 1) / imu_rate and int(duration * cam_rate) - 1 frames at
-    0.1 + i / cam_rate, each quantized to 8 bits and back as a PNG round trip
-    does (truncating, then / 255 in float32). With `cam` the frames are
-    rendered through that camera model at its own size. Returns (events,
-    gyro (N, 3), acc (N, 3), frames): `events` is the time-ordered list of
-    (t, "imu" | "img", index), IMU first on equal stamps."""
+def vio_stream_jobs(duration: float, cam_rate: float = 10.0, imu_rate: float = 200.0,
+                    width: int = 320, height: int = 240, f: float = 200.0, cam=None,
+                    world_seed: int = 0, scale: float = 1.5, period: float = 8.0):
+    """A mav0-style camera + IMU stream on the figure-8 of (world_seed,
+    scale, period), split into the IMU part (made here) and the renders, to
+    run anywhere: ideal IMU samples at (i + 1) / imu_rate and
+    int(duration * cam_rate) - 1 frames at 0.1 + i / cam_rate (a centered
+    pinhole at (width, height, f), or the camera model `cam` at its own
+    size). Returns (head, jobs): map ``run_job`` over the jobs, then
+    ``vio_stream_join(head, results)``."""
+    traj = figure8_trajectory(scale=scale, period=period)
     ts = (np.arange(int(duration * imu_rate)) + 1) / imu_rate
     gyro, acc = traj.imu(ts)
+    img_ts = [0.1 + i / cam_rate for i in range(int(duration * cam_rate) - 1)]
     events = [(float(t), "imu", i) for i, t in enumerate(ts)]
-    frames = []
-    for i in range(int(duration * cam_rate) - 1):
-        t = 0.1 + i / cam_rate
-        img = render_camera_image(world, traj, t, width=width, height=height, f=f, cam=cam)
-        frames.append((img * 255).astype(np.uint8).astype(np.float32) / np.float32(255.0))
-        events.append((t, "img", i))
+    events += [(t, "img", i) for i, t in enumerate(img_ts)]
     events.sort(key=lambda e: e[0])
-    return events, gyro, acc, frames
+    head = dict(events=events, gyro=gyro, acc=acc)
+    scene = (world_seed, scale, period)
+    return head, [("render", scene, t, width, height, f, cam) for t in img_ts]
+
+
+def vio_stream_join(head: dict, results: list):
+    """(events, gyro (N, 3), acc (N, 3), frames): each render quantized to 8
+    bits and back as a PNG round trip does (truncating, then / 255 in
+    float32); `events` is the time-ordered list of (t, "imu" | "img",
+    index), IMU first on equal stamps."""
+    frames = [(im * 255).astype(np.uint8).astype(np.float32) / np.float32(255.0)
+              for im in results]
+    return head["events"], head["gyro"], head["acc"], frames
+
+
+def vio_stream(duration: float, **kw):
+    """``vio_stream_jobs`` run here."""
+    head, jobs = vio_stream_jobs(duration, **kw)
+    return vio_stream_join(head, [run_job(j) for j in jobs])
 
 
 def consistent_window_arrays(W: int = 4, F: int = 24, seed: int = 0,
@@ -455,3 +470,143 @@ def consistent_window(W: int = 4, F: int = 24, seed: int = 0, device=None):
         obs=t(a["obs"]), obs_valid=t(a["obs_valid"]), inv_depth=t(a["inv_depth"]))
     G = torch.tensor([0.0, 0.0, params.g_norm], device=device)
     return caps, cfg, ws, pints, table, G
+
+
+# ---------------------------------------------------------------------------
+# The fused system's streams (config 5)
+# ---------------------------------------------------------------------------
+
+def _u8(img: np.ndarray) -> np.ndarray:
+    """Quantize a float image as the frame packer does (`frame_step.pack_frame`)."""
+    return np.clip(np.round(np.asarray(img) * 255.0), 0, 255).astype(np.uint8)
+
+
+def lvi_sequence_jobs(duration: float = 12.0, horizon: int = 900, width: int = 320,
+                     height: int = 240, f: float = 200.0, cam=None, world_seed: int = 0,
+                     scale: float = 3.0, period: float = 30.0):
+    """The fused system's sensor streams on the figure-8 (the bench's config-5
+    sequences), split into the IMU part (made here) and the raycasts, to run
+    anywhere: 200 Hz IMU with its attitude (rpy) at (i + 1) / 200 s, a
+    4-beam lidar sweep of `horizon` columns every 0.1 s from 0.05 s and an
+    8-bit frame every 0.1 s from 0.1 s (a centered pinhole at (width,
+    height, f), or the camera model `cam` at its own size), int(duration *
+    10) - 1 of each. Returns (head, jobs): map ``run_job`` over the jobs,
+    then ``lvi_sequence_join(head, results)``."""
+    traj = figure8_trajectory(scale=scale, period=period)
+    imu_ts = (np.arange(int(duration * 200)) + 1) / 200
+    w_all, f_all = traj.imu(imu_ts)
+    rpys = np.stack([
+        Rsc.from_matrix(traj.pose(np.array([t]))[1][0]).as_euler("ZYX")[::-1]
+        for t in imu_ts]).astype(np.float32)
+    n = int(duration * 10) - 1
+    scan_ts = [0.05 + i / 10 for i in range(n)]
+    img_ts = [0.1 + i / 10 for i in range(n)]
+    head = dict(imu_ts=imu_ts, w=w_all, f=f_all, rpys=rpys, scan_ts=scan_ts, img_ts=img_ts)
+    scene = (world_seed, scale, period)
+    return head, ([("scan", scene, t, horizon, 0.1) for t in scan_ts]
+                  + [("image", scene, t, width, height, f, cam) for t in img_ts])
+
+
+def lvi_sequence_join(head: dict, results: list) -> dict:
+    """The stream dict: imu_ts, w, f, rpys, scans [(t, scan)], imgs [(t, u8)]."""
+    n = len(head["scan_ts"])
+    return dict(imu_ts=head["imu_ts"], w=head["w"], f=head["f"], rpys=head["rpys"],
+                scans=list(zip(head["scan_ts"], results[:n])),
+                imgs=list(zip(head["img_ts"], results[n:])))
+
+
+def lvi_sequence(duration: float = 12.0, horizon: int = 900, cam=None, **kw) -> dict:
+    """``lvi_sequence_jobs`` run here; the defaults are the 12 s parity
+    sequence (`bench.py:_lvi_seq_data`)."""
+    head, jobs = lvi_sequence_jobs(duration, horizon, cam=cam, **kw)
+    return lvi_sequence_join(head, [run_job(j) for j in jobs])
+
+
+_SCENES: dict = {}
+
+
+def _scene(key):
+    """(world, trajectory) of (world_seed, scale, period), built once a
+    process (jobs carry the key: a trajectory's functions do not pickle)."""
+    if key not in _SCENES:
+        seed, scale, period = key
+        _SCENES[key] = (default_world(seed=seed), figure8_trajectory(scale=scale, period=period))
+    return _SCENES[key]
+
+
+def run_job(job):
+    """One raycast of a stream, anywhere (a worker process included):
+    ("scan", scene, t, horizon, sweep_time) -> a 4-beam lidar sweep;
+    ("image", scene, t, width, height, f, cam) -> an 8-bit frame (rounded);
+    ("render", scene, t, width, height, f, cam) -> the float32 frame.
+    `scene` is (world_seed, scale, period) of the figure-8."""
+    kind, key, t, *rest = job
+    world, traj = _scene(key)
+    if kind == "scan":
+        horizon, sweep = rest
+        return simulate_lidar_scan(world, traj, t, n_scan=4, horizon=horizon, sweep_time=sweep)
+    width, height, f, cam = rest
+    img = render_camera_image(world, traj, t, width=width, height=height, f=f, cam=cam)
+    return _u8(img) if kind == "image" else img
+
+
+def feed_lvi(system, data: dict, lo: float, hi: float) -> None:
+    """Publish the events of `data` (``lvi_sequence``) with lo <= t < hi to a
+    fused system: IMU, then scans, then frames (the bus orders by stamp)."""
+    for i, t in enumerate(data["imu_ts"]):
+        if lo <= t < hi:
+            system.feed_imu(t, data["w"][i], data["f"][i], rpy=data["rpys"][i])
+    for t, sc in data["scans"]:
+        if lo <= t < hi:
+            system.feed_lidar(t, sc)
+    for t, im in data["imgs"]:
+        if lo <= t < hi:
+            system.feed_image(t, im)
+
+
+def lvi_sequence_sha256(data: dict) -> str:
+    """sha256 of every array of an ``lvi_sequence`` (16 hex digits)."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for key in ("imu_ts", "w", "f", "rpys"):
+        h.update(np.ascontiguousarray(data[key]).tobytes())
+    for t, sc in data["scans"]:
+        h.update(np.float64(t).tobytes())
+        for key in ("xyz", "time", "ring", "intensity"):
+            h.update(np.ascontiguousarray(sc[key]).tobytes())
+    for t, im in data["imgs"]:
+        h.update(np.float64(t).tobytes())
+        h.update(np.ascontiguousarray(im).tobytes())
+    return h.hexdigest()[:16]
+
+
+# the revisit scene of `tests/test_loop_detector.py`: world seed 3, the
+# figure-8 at period 8 s (the start is revisited at t + 8), 21 frames
+LOOP_SCENE_TIMES = tuple(float(t) for t in np.arange(0.0, 8.4, 0.4))
+
+
+def loop_scene():
+    """(world, trajectory, stamps, float32 320x240 frames, unquantized) of
+    the loop detector's revisit scene."""
+    world = default_world(seed=3)
+    traj = figure8_trajectory(scale=3.0, period=8.0)
+    imgs = [render_camera_image(world, traj, t, width=320, height=240, f=200.0)
+            for t in LOOP_SCENE_TIMES]
+    return world, traj, LOOP_SCENE_TIMES, imgs
+
+
+def ray_points(world: World, traj: Trajectory, t: float, kp: np.ndarray,
+               f: float = 200.0, center=(160.0, 120.0)):
+    """World points of pixels `kp` (K, 2) of the centered pinhole at time t,
+    by raycast (10 m along the ray where it hits nothing). Returns
+    (pts_w (K, 3) float32, hit (K,) bool)."""
+    p, R = traj.pose(np.array([t]))
+    d_cam = np.concatenate([(np.asarray(kp) - np.asarray(center)) / f,
+                            np.ones((len(kp), 1))], axis=1)
+    d_cam /= np.linalg.norm(d_cam, axis=1, keepdims=True)
+    d_world = d_cam @ (R[0] @ R_CAM_BODY).T
+    rng_hit = raycast(world, np.broadcast_to(p[0], d_world.shape), d_world)
+    hit = np.isfinite(rng_hit)
+    pts = p[0] + d_world * np.where(hit, rng_hit, 10.0)[:, None]
+    return pts.astype(np.float32), hit

@@ -8,6 +8,8 @@ import torch
 from lvislam_tpu_torch.core.config import CameraIntrinsics
 from lvislam_tpu_torch.models.lio import imu_fusion, mapping
 from lvislam_tpu_torch.models.lio.pipeline import LioConfig, LioPipeline
+from lvislam_tpu_torch.models.loop import loop_detector
+from lvislam_tpu_torch.models.pipeline import LviConfig, LviSystem
 from lvislam_tpu_torch.models.vio import estimator, feature_manager
 from lvislam_tpu_torch.models.vio.feature_tracker import FeatureTracker, tracker_init, TrackerParams
 from lvislam_tpu_torch.models.vio.pipeline import VioRunner, VioRunnerConfig
@@ -26,6 +28,11 @@ RUNNER_CFG = VioRunnerConfig(
     camera=CameraIntrinsics(model_type="PINHOLE", image_width=64, image_height=48),
     tracker=TrackerParams(max_cnt=8, klt_levels=1), caps=VIO_CAPS, ba=BA_CFG,
     image_height=48, image_width=64)
+LVI_CFG = LviConfig(
+    lio=CFG, vio_caps=VIO_CAPS, ba=BA_CFG, tracker=TrackerParams(max_cnt=8, klt_levels=1),
+    camera=RUNNER_CFG.camera, image_height=48, image_width=64, depth_cloud_slots=2,
+    loop_caps=loop_detector.LoopCaps(max_keyframes=4, extra_points=8, vocab_words=16),
+    vocab_path=None)
 BUILDERS = {
     "LioPipeline": lambda **kw: LioPipeline(CFG, **kw).state.x6,
     "lio_init": lambda **kw: mapping.lio_init(CAPS, **kw).x6,
@@ -41,6 +48,9 @@ BUILDERS = {
     "ImuNoise.create": lambda **kw: preintegration.ImuNoise.create(0.1, 0.01, 1e-3, 1e-4, **kw).acc_n,
     "navstate_identity": lambda **kw: preintegration.navstate_identity(**kw).quat,
     "consistent_window": lambda **kw: synthetic.consistent_window(2, 4, **kw)[2].Ps,
+    "LviSystem": lambda **kw: LviSystem(LVI_CFG, **kw).depth_clouds,
+    "db_init": lambda **kw: loop_detector.db_init(loop_detector.LoopCaps(
+        max_keyframes=4, extra_points=8, vocab_words=16), **kw).bags,
 }
 
 

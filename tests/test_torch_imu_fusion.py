@@ -184,3 +184,46 @@ def test_transform_fusion_matches_jax():
     tt, qt = tfus.transform_fusion(*map(_t, args))
     np.testing.assert_allclose(tt.numpy(), np.asarray(tj), atol=1e-5)
     np.testing.assert_allclose(qt.numpy(), np.asarray(qj), atol=1e-6)
+
+
+@pytest.mark.slow
+def test_jax_fusion_over_replay_anchor():
+    """The JAX package's smoother on the CPU over `chip_smoke.py` phase 9b's
+    90 corrections: the card's LIO replay poses (phase 3's trajectory,
+    sha256 `12114c5d46c4c33b`, stored in `tests/data`), the same injected
+    biases and noise seed. The end state's bias and position errors are
+    `utils/anchors.FUSION_REPLAY` (prints them)."""
+    import sys
+    from pathlib import Path
+
+    from lvislam_tpu_torch.utils import anchors
+
+    root = Path(__file__).resolve().parents[1]
+    sys.path.insert(0, str(root))
+    import chip_smoke
+
+    traj6 = np.load(root / "tests" / "data" / "lio_replay_trajectory.npy")
+    settings, first, steps = chip_smoke.fusion_inputs(traj6)
+    params = jfus.FusionParams(**settings)
+    st = jfus.fusion_initialize(jfus.fusion_init(params), jnp.asarray(first[0]),
+                                jnp.asarray(first[1]), params)
+    failed = False
+    for dts, accs, gyrs, pos, quat in steps:
+        st = jfus.fusion_correct(st, jnp.asarray(dts), jnp.asarray(accs), jnp.asarray(gyrs),
+                                 jnp.asarray(pos), jnp.asarray(quat), jnp.asarray(False), params)
+        failed |= bool(st.failed)
+    bg_err, ba_err, pos_err = chip_smoke.fusion_errors(np.asarray(st.bg), np.asarray(st.ba),
+                                                       np.asarray(st.pos), traj6[-1, 3:6])
+    got = {"poses_sha256": chip_smoke.sha256(traj6), "corrections": len(steps),
+           "failed": failed, "bg_err_over_true": bg_err, "ba_err_over_true": ba_err,
+           "pos_err_m": pos_err, "ba_est": [float(v) for v in np.asarray(st.ba)],
+           "bg_est": [float(v) for v in np.asarray(st.bg)]}
+    print("FUSION_REPLAY =", got)
+    ref = anchors.FUSION_REPLAY
+    for key, v in got.items():
+        if isinstance(v, float):
+            assert v == pytest.approx(ref[key], rel=1e-6), key
+        elif isinstance(v, list):
+            np.testing.assert_allclose(v, ref[key], rtol=1e-6, err_msg=key)
+        else:
+            assert v == ref[key], key

@@ -294,7 +294,9 @@ def test_port_imports_no_jax():
         "assert not bad, bad\n"
         "need = ['ops.preintegration', 'ops.triangulate', 'ops.handeye', 'ops.ba', 'ops.dense',\n"
         "        'models.lio.imu_fusion', 'models.vio.feature_manager', 'models.vio.initializer',\n"
-        "        'models.vio.estimator', 'models.vio.pipeline', 'utils.convert', 'utils.anchors']\n"
+        "        'models.vio.estimator', 'models.vio.pipeline', 'utils.convert', 'utils.anchors',\n"
+        "        'utils.bus', 'utils.metrics', 'ops.brief', 'ops.ransac', 'models.loop.loop_detector',\n"
+        "        'models.vio.frame_step', 'models.pipeline']\n"
         "missing = [m for m in need if 'lvislam_tpu_torch.' + m not in sys.modules]\n"
         "assert not missing, missing\n"
         "print('clean', len([m for m in sys.modules if m.startswith('lvislam_tpu_torch')]))\n"

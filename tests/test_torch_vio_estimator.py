@@ -89,9 +89,8 @@ def _jax_init(params=PARAMS, qic=QIC):
 def stream():
     """The rendered stream, the JAX tracker's output per frame and the IMU
     window per frame, as `VioRunner.feed_image` forms them."""
-    world = tsyn.default_world(seed=0)
     traj = tsyn.figure8_trajectory(scale=1.5, period=12.0)
-    events, gyro, acc, frames = tsyn.vio_stream(world, traj, DURATION)
+    events, gyro, acc, frames = tsyn.vio_stream(DURATION, world_seed=0, scale=1.5, period=12.0)
     tracker = jft.tracker_init(240, 320, TRACKER)
     imu_t = np.array([t for t, kind, _ in events if kind == "imu"])
     steps, last = [], -1.0
