@@ -107,6 +107,35 @@ Phases, one line each:
    (if not, a second run with mapRebuildEvery=1 is printed beside it and
    gated). The streams of phases 14 and 15 are raycast by worker processes
    while phases 1-12 run.
+Phases 16 and 17 run in two spawned processes of their own, on the card,
+while the main process runs phases 14 and 15 (every phase is host-bound and
+the card mostly idle; so the host times of phases 14-17 are taken with
+three processes on the card):
+
+16. bag_fixture: the bag-replay entry point (``python -m
+   lvislam_tpu_torch.scripts.run_rosbag_lvi``, called in-process on the
+   card) over the committed fixture bag (``tests/data/fixture_mid360.db3``:
+   6 s, JPEG frames 320x240, 4 x 900 livox scans) with
+   ``tests/data/fixture_{lidar,camera}.yaml``. Gates: 1,200 IMU, 59 livox
+   and 59 image messages, none skipped; the decoded frames' sha256 equal to
+   PIL's; the script's ``LviConfig`` equal to the JAX script's (field dict
+   and hash); the TUM trajectory (>= 10 rows, finite, stamps increasing, a
+   plausible span) and a ``.pcd`` in the saved map; the aligned ATE within
+   LVI_BAND of the worst of the JAX CPU runs' (the script's own run and
+   four with one input a float32 step off: the JAX run's own spread; all in
+   ``utils/anchors.ROSBAG_FIXTURE``);
+   no kernel launched (the script keeps K1 and K2 off, the fixture's
+   camera has CLAHE off). Reports RTF, handler ms, host syncs, poses.
+17. bag_shipped: phase 15's stream written by ``utils/bag_writer`` into
+   ``.chip_tmp/`` as a rosbag2 file (IMU, livox scans, raw mono8 frames at
+   1024x576), beside ``configs/params_{lidar,camera}.yaml`` with the fields
+   of ``shipped_camera_overrides`` replaced (the render's camera-to-body
+   rotation and zero translation, phase 15's VIO noise and gravity, 4 BA
+   iterations, no td estimate), replayed by the same script. Gates: K3 and
+   K4 launched once a frame, VIO initialized with no failure, ATE <=
+   0.10 m. Reports RTF and the write and replay wall times; after phase 15,
+   ``[bag_shipped_vs_full]`` gives the max and RMS distance of its poses
+   from phase 15's at the same stamps.
 
 ``--loop`` adds the 38 s revisit arm of ``bench.py:770-887`` on the parity
 configuration (192 keyframes, 16 loop slots): at least one loop factor.
@@ -1921,7 +1950,11 @@ def lvi_parity_phase(stream, dev):
 
 
 def lvi_full_phase(stream, dev):
-    """Phase 15: config 5 at the shipped scale, 2 s warm then 5 s timed."""
+    """Phase 15: config 5 at the shipped scale, 2 s warm then 5 s timed.
+    Returns the first run's summary, the gated run's, and the first run's
+    trajectory rows [t, x6]."""
+    import numpy as np
+
     from lvislam_tpu_torch.utils import synthetic as syn
 
     data = stream.get()
@@ -1937,7 +1970,7 @@ def lvi_full_phase(stream, dev):
                  loop_inserts=int(sys_.loop_db.count), keyframes_after_init=kf_after,
                  loops=int(sys_.lio.state.n_loops),
                  map_rebuild_every=cfg.lio.params.mapRebuildEvery)
-        runs[rebuild] = (r, rec)
+        runs[rebuild] = (r, rec, np.stack([np.r_[t, x6] for t, x6 in sys_.trajectory]))
         log("lvi_full" if rebuild is None else "lvi_full_rebuild1", seconds=LVI_FULL_S,
             timed_s=LVI_FULL_S - LVI_WARM_S, ate_limit_m=LVI_FULL_ATE_M,
             stream_wait_s=round(stream.waited_s, 1), **fmt_run(r))
@@ -1946,7 +1979,7 @@ def lvi_full_phase(stream, dev):
         print(f"  lvi_full: ATE {r['ate_m']:.4f} m over {LVI_FULL_ATE_M} m with "
               f"mapRebuildEvery={r['map_rebuild_every']}: rerun with mapRebuildEvery=1",
               flush=True)
-    r, rec = runs[rebuild]
+    r, rec, _ = runs[rebuild]
     if not (r["init_frame"] and r["failure_count"] == 0):
         raise AssertionError(f"lvi_full: VIO init frame {r['init_frame']}, "
                              f"failures {r['failure_count']}")
@@ -1957,7 +1990,7 @@ def lvi_full_phase(stream, dev):
         raise AssertionError(f"lvi_full: a kernel was never launched {r['launches']}")
     if not r["ate_m"] <= LVI_FULL_ATE_M:
         raise AssertionError(f"lvi_full: ATE {r['ate_m']:.4f} m over {LVI_FULL_ATE_M} m")
-    return runs[None][0], r
+    return runs[None][0], r, runs[None][2]
 
 
 def lvi_loop_phase(stream, dev):
@@ -1990,6 +2023,301 @@ def lvi_loop_phase(stream, dev):
         raise AssertionError("lvi_loop: no loop factor accepted")
 
 
+class ShiftedTrajectory:
+    """A trajectory read at t + dt: a bag replay feeds stamps relative to
+    the bag's first message, the ground truth runs on absolute time."""
+
+    def __init__(self, traj, dt: float):
+        self.traj, self.dt = traj, dt
+
+    def pose(self, t):
+        import numpy as np
+
+        return self.traj.pose(np.asarray(t, np.float64) + self.dt)
+
+
+def replay_bag(argv, dev):
+    """The port's `run_rosbag_lvi.main(argv + --device)` in-process, its
+    system watched (`watch_system`), every kernel count set to 0 just
+    before and read just after. Returns (main's result, record, launches,
+    wall s of the whole call)."""
+    import torch
+
+    from lvislam_tpu_torch.ops import clahe
+    from lvislam_tpu_torch.ops import gn_partials as gnp
+    from lvislam_tpu_torch.ops import knn_tail as kt
+    from lvislam_tpu_torch.scripts import run_rosbag_lvi as script
+
+    rec = {}
+    plain = script.LviSystem
+
+    class Watched(plain):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            rec.update(watch_system(self))
+
+    script.LviSystem = Watched
+    try:
+        kt.LAUNCHES = gnp.LAUNCHES = clahe.HIST_LAUNCHES = clahe.APPLY_LAUNCHES = 0
+        t0 = time.perf_counter()
+        r = script.main([*argv, "--device", str(dev)])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {"K1": kt.LAUNCHES, "K2": gnp.LAUNCHES, "K3": clahe.HIST_LAUNCHES,
+                    "K4": clahe.APPLY_LAUNCHES}
+    finally:
+        script.LviSystem = plain
+    return r, rec, launches, wall
+
+
+def check_tum(path: str, name: str):
+    """The TUM file's rows: at least 10, finite, stamps strictly increasing,
+    a motion span in (0.05, 50) m (`tests/test_rosbag_e2e.py:40-47`)."""
+    import numpy as np
+
+    tum = np.loadtxt(path)
+    span = float(np.linalg.norm(tum[:, 1:4].max(0) - tum[:, 1:4].min(0))) if tum.ndim == 2 else 0.0
+    if not (tum.ndim == 2 and tum.shape[1] == 8 and tum.shape[0] >= 10
+            and np.isfinite(tum).all() and (np.diff(tum[:, 0]) > 0).all() and 0.05 < span < 50.0):
+        raise AssertionError(f"{name}: bad TUM trajectory {tum.shape}, span {span:.3f} m")
+    return tum
+
+
+def bag_fixture_phase(dev):
+    """Phase 16: the committed fixture bag (`tests/data/fixture_mid360.db3`,
+    JPEG frames) through the port's `run_rosbag_lvi` with the fixture YAMLs,
+    gated against the JAX script's CPU run (`utils/anchors.ROSBAG_FIXTURE`)."""
+    import hashlib
+
+    import numpy as np
+
+    from lvislam_tpu_torch.utils import anchors
+    from lvislam_tpu_torch.utils import synthetic as syn
+    from lvislam_tpu_torch.utils.bag import Rosbag2Reader
+
+    ref = anchors.ROSBAG_FIXTURE
+    data = os.path.join(ROOT, "tests", "data")
+    bag = os.path.join(data, "fixture_mid360.db3")
+    out = os.path.join(ROOT, ".chip_tmp", "bag_fixture")
+    os.makedirs(out, exist_ok=True)
+    # the decoded frames, hashed against PIL's (the port's JPEG decoder)
+    t0 = time.perf_counter()
+    h, n_img = hashlib.sha256(), 0
+    for _, _, kind, msg in Rosbag2Reader(bag):
+        if kind == "image":
+            h.update(np.ascontiguousarray(msg["image"]).tobytes())
+            n_img += 1
+    decode_s = time.perf_counter() - t0
+    frames_sha = h.hexdigest()[:16]
+    tum_path, map_dir = os.path.join(out, "trajectory.tum"), os.path.join(out, "map")
+    r, rec, launches, wall = replay_bag(
+        [bag, "--lidar-yaml", os.path.join(data, "fixture_lidar.yaml"),
+         "--camera-yaml", os.path.join(data, "fixture_camera.yaml"),
+         "--out", tum_path, "--save-map", map_dir], dev)
+    sys_ = r["system"]
+    cfg_sha = anchors.config_sha256(sys_.cfg)
+    traj = ShiftedTrajectory(syn.figure8_trajectory(scale=3.0, period=30.0), r["t0"])
+    s = lvi_summary(sys_, rec, traj, 0.0)
+    # as phase 14: the band over the worst of the JAX package's readings of
+    # the bag, its own run and its runs with one input a float32 step off
+    jax_worst = max(ref["ate_m"], *ref["ate_one_ulp_m"].values())
+    limit = LVI_BAND * jax_worst
+    log("bag_fixture", messages=r["messages"], skipped=r["skipped"], frames_sha256=frames_sha,
+        jax_frames_sha256=ref["frames_sha256"], decode_s=round(decode_s, 2),
+        decode_ms_per_frame=round(1e3 * decode_s / max(n_img, 1), 2), config_sha256=cfg_sha,
+        span_s=round(r["span_s"], 3), rtf=round(r["span_s"] / r["wall_s"], 4),
+        run_wall_s=round(r["wall_s"], 2), script_wall_s=round(wall, 2),
+        ate_limit_m=round(limit, 5), jax_ate_m=round(ref["ate_m"], 5),
+        jax_one_ulp_ate_m={k: round(v, 5) for k, v in ref["ate_one_ulp_m"].items()},
+        within_band_of_unperturbed_jax=s["ate_m"] <= LVI_BAND * ref["ate_m"],
+        jax_trajectory_points=ref["trajectory_points"], jax_keyframes=ref["keyframes"],
+        map=r["map"], kernels=launches, **fmt_run(s))
+    want = {"imu": 1200, "livox": 59, "image": 59}
+    if r["messages"] != want or r["skipped"] != 0 or ref["messages"] != want:
+        raise AssertionError(f"bag_fixture: messages {r['messages']} skipped {r['skipped']}, "
+                             f"want {want} and 0")
+    if frames_sha != ref["frames_sha256"]:
+        raise AssertionError(f"bag_fixture: decoded frames {frames_sha} are not PIL's "
+                             f"{ref['frames_sha256']}")
+    if anchors.config_fields(sys_.cfg) != ref["config"] or cfg_sha != ref["config_sha256"]:
+        raise AssertionError(f"bag_fixture: the script's configuration {cfg_sha} is not the "
+                             f"JAX script's {ref['config_sha256']}")
+    check_tum(tum_path, "bag_fixture")
+    if not any(f.endswith(".pcd") for f in os.listdir(map_dir)):
+        raise AssertionError(f"bag_fixture: no .pcd in {map_dir}")
+    if any(launches.values()):
+        raise AssertionError(f"bag_fixture: kernels launched on a path that runs none {launches}")
+    if not s["ate_m"] <= limit:
+        raise AssertionError(f"bag_fixture: ATE {s['ate_m']:.4f} m over {limit:.4f} m")
+    return s, launches
+
+
+# the fields of `configs/params_camera.yaml` that phase 15's configuration
+# (`lvi_full_config`, `bench.py:668-767`) sets otherwise, as phase 17
+# writes them beside its bag; `configs/params_lidar.yaml` goes unchanged
+# (phase 15 keeps its YAML fields at their defaults)
+def shipped_camera_overrides() -> dict:
+    from lvislam_tpu_torch.models.vio import estimator as est
+    from lvislam_tpu_torch.utils import synthetic as syn
+
+    p = est.VioParams(g_norm=syn.GRAVITY)
+    return {
+        "extrinsicRotation": [float(v) for v in syn.R_CAM_BODY.reshape(-1)],  # the render's rig
+        "extrinsicTranslation": [0.0, 0.0, 0.0],
+        "acc_n": p.acc_n, "gyr_n": p.gyr_n, "acc_w": p.acc_w, "gyr_w": p.gyr_w,
+        "g_norm": p.g_norm,
+        "max_num_iterations": 4,  # BAConfig(iterations=4)
+        "estimate_td": 0,
+    }
+
+
+def write_shipped_yamls(out: str):
+    """`configs/params_{lidar,camera}.yaml` copied beside the bag, the camera
+    file's `shipped_camera_overrides` fields replaced in its text; checked by
+    loading both and comparing with the shipped configuration."""
+    import dataclasses
+    import re
+
+    from lvislam_tpu_torch.core.config import load_yaml
+
+    src = os.path.join(ROOT, "configs")
+    with open(os.path.join(src, "params_lidar.yaml")) as f:
+        lidar = f.read()
+    with open(os.path.join(src, "params_camera.yaml")) as f:
+        camera = f.read()
+    over = shipped_camera_overrides()
+    for key, v in over.items():
+        if isinstance(v, list):
+            pat = rf"(^{key}: !!opencv-matrix\n(?:  .*\n)*?  data: )\[[^\]]*\]"
+            text = "[" + ", ".join(repr(x) for x in v) + "]"
+        else:
+            pat, text = rf"(^{key}: ).*$", repr(v)
+        camera, n = re.subn(pat, lambda m: m.group(1) + text, camera, flags=re.M)
+        if n != 1:
+            raise AssertionError(f"bag_shipped: {key} not found once in params_camera.yaml")
+    paths = os.path.join(out, "params_lidar.yaml"), os.path.join(out, "params_camera.yaml")
+    for path, text in zip(paths, (lidar, camera)):
+        with open(path, "w") as f:
+            f.write(text)
+    got, base = load_yaml(*paths), load_yaml(*[os.path.join(src, os.path.basename(p)) for p in paths])
+    want = dataclasses.replace(base.vins, **{
+        k: (tuple(v) if isinstance(v, list) else type(getattr(base.vins, k))(v))
+        for k, v in over.items()})
+    if got.lidar != base.lidar or got.vins != want:
+        raise AssertionError("bag_shipped: the written YAMLs do not load as intended")
+    return paths
+
+
+def write_shipped_bag(data: dict, path: str) -> int:
+    """Phase 15's stream (`lvi_sequence`) as a rosbag2 file: 200 Hz
+    sensor_msgs/Imu with the stream's attitude, livox CustomMsg scans (the
+    finite points, as the sensor publishes them) and raw mono8
+    sensor_msgs/Image frames, each stamped to the nanosecond."""
+    import numpy as np
+    from scipy.spatial.transform import Rotation as Rsc
+
+    from lvislam_tpu_torch.utils import bag_writer as bw
+
+    ns = lambda t: int(round(t * 1e9))
+    msgs = []
+    quats = Rsc.from_euler("ZYX", np.asarray(data["rpys"], np.float64)[:, ::-1]).as_quat()
+    for i, t in enumerate(data["imu_ts"]):
+        q = quats[i]
+        msgs.append((ns(t), 0, bw.encode_imu(t, data["w"][i], data["f"][i],
+                                             (q[3], q[0], q[1], q[2]))))
+    for t, sc in data["scans"]:
+        ok = np.isfinite(sc["xyz"]).all(-1)
+        msgs.append((ns(t), 1, bw.encode_livox(t, sc["xyz"][ok], sc["time"][ok],
+                                               sc["ring"][ok], sc["intensity"][ok])))
+    for t, im in data["imgs"]:
+        msgs.append((ns(t), 2, bw.encode_image(t, im)))
+    return bw.write_bag(path, [("/livox/imu", "sensor_msgs/msg/Imu"),
+                               ("/livox/lidar", "livox_ros_driver2/msg/CustomMsg"),
+                               ("/camera/image", "sensor_msgs/msg/Image")], msgs)
+
+
+def write_shipped_inputs(data: dict):
+    """Phase 17's inputs in `.chip_tmp/bag_shipped/`: the YAML pair and the
+    bag of phase 15's stream. Returns (bag, lidar YAML, camera YAML,
+    messages written, seconds taken)."""
+    out = os.path.join(ROOT, ".chip_tmp", "bag_shipped")
+    os.makedirs(out, exist_ok=True)
+    bag = os.path.join(out, "shipped.db3")
+    t0 = time.perf_counter()
+    lidar_yaml, camera_yaml = write_shipped_yamls(out)
+    n_msgs = write_shipped_bag(data, bag)
+    return bag, lidar_yaml, camera_yaml, n_msgs, time.perf_counter() - t0
+
+
+def bag_shipped_phase(inputs, dev):
+    """Phase 17: the bag of `write_shipped_inputs` (phase 15's stream at the
+    shipped scale, the shipped YAMLs with the rig's fields replaced),
+    replayed by the port's `run_rosbag_lvi`. Gates: K3 and K4 once a frame,
+    VIO initialized with no failure, ATE <= LVI_FULL_ATE_M. Returns the
+    summary, the launches and the trajectory rows [t + t0, x6]."""
+    import numpy as np
+
+    from lvislam_tpu_torch.utils import anchors
+    from lvislam_tpu_torch.utils import synthetic as syn
+
+    bag, lidar_yaml, camera_yaml, n_msgs, write_s = inputs
+    tum_path = os.path.join(os.path.dirname(bag), "trajectory.tum")
+    r, rec, launches, wall = replay_bag(
+        [bag, "--lidar-yaml", lidar_yaml, "--camera-yaml", camera_yaml, "--out", tum_path], dev)
+    sys_ = r["system"]
+    traj = ShiftedTrajectory(syn.figure8_trajectory(scale=3.0, period=30.0), r["t0"])
+    s = lvi_summary(sys_, rec, traj, 0.0)
+    frames = rec["frames"]
+    once = all(f[4] == 1 and f[5] == 1 for f in frames)
+    log("bag_shipped", seconds=LVI_FULL_S, messages=r["messages"], skipped=r["skipped"],
+        bag_mb=round(os.path.getsize(bag) / 1e6, 1), bag_messages=n_msgs,
+        write_s=round(write_s, 2), span_s=round(r["span_s"], 3),
+        rtf=round(r["span_s"] / r["wall_s"], 4), run_wall_s=round(r["wall_s"], 2),
+        script_wall_s=round(wall, 2), config_sha256=anchors.config_sha256(sys_.cfg),
+        phase15_config_sha256=anchors.config_sha256(lvi_full_config()),
+        ate_limit_m=LVI_FULL_ATE_M, kernels=launches, **fmt_run(s))
+    check_tum(tum_path, "bag_shipped")
+    if not (frames and once and launches["K3"] == launches["K4"] == len(frames) == sys_.vio_frames):
+        raise AssertionError(f"bag_shipped: K3/K4 launched {launches['K3']}/{launches['K4']} "
+                             f"times over {sys_.vio_frames} frames (once a frame: {once})")
+    if r["skipped"] or not (s["init_frame"] and s["failure_count"] == 0):
+        raise AssertionError(f"bag_shipped: skipped {r['skipped']}, VIO init frame "
+                             f"{s['init_frame']}, failures {s['failure_count']}")
+    if not s["ate_m"] <= LVI_FULL_ATE_M:
+        raise AssertionError(f"bag_shipped: ATE {s['ate_m']:.4f} m over {LVI_FULL_ATE_M} m")
+    rows = np.stack([np.r_[t + r["t0"], np.asarray(x6, np.float64)] for t, x6 in sys_.trajectory])
+    return s, launches, rows
+
+
+def compare_with_full(bag_rows, full_rows):
+    """Phase 17's poses against phase 15's on the same stream, at the stamps
+    both processed (phase 15's rows hold float32 stamps)."""
+    import numpy as np
+
+    near = np.abs(bag_rows[None, :, 0] - full_rows[:, :1].astype(np.float64))
+    pairs = [(i, int(np.argmin(near[i]))) for i in range(len(full_rows)) if near[i].min() < 1e-4]
+    d = (np.array([np.linalg.norm(bag_rows[j, 4:7] - full_rows[i, 4:7]) for i, j in pairs])
+         if pairs else np.full(1, np.inf))
+    log("bag_shipped_vs_full", poses=len(pairs), max_m=round(float(d.max()), 5),
+        rms_m=round(float(np.sqrt(np.mean(d ** 2))), 5))
+
+
+def bag_worker(phase: str, t_start: float, inputs=None):
+    """Phase 16 ("fixture") or 17 ("shipped") in a process of its own, on the
+    card, deterministic as the main process; its `t=` counts from `t_start`
+    (the main process's start; `perf_counter` is the machine's monotonic
+    clock)."""
+    import torch
+
+    global T_START
+    T_START = t_start
+    import lvislam_tpu_torch  # noqa: F401  (full-f32 math settings)
+
+    torch.use_deterministic_algorithms(True)
+    dev = torch.device("cuda", 0)
+    return bag_fixture_phase(dev) if phase == "fixture" else bag_shipped_phase(inputs, dev)
+
+
 def main() -> int:
     import torch
 
@@ -2006,13 +2334,26 @@ def main() -> int:
     torch.use_deterministic_algorithms(True)
     dev = torch.device("cuda", 0)
     pool = stream_pool()
+    bag_pool = bag_worker_pool()
     try:
-        return run_phases(pool, dev)
+        return run_phases(pool, bag_pool, dev)
     finally:
         pool.shutdown(wait=True, cancel_futures=True)
+        bag_pool.shutdown(wait=True, cancel_futures=True)
 
 
-def run_phases(pool, dev) -> int:
+def bag_worker_pool():
+    """Two spawned processes for phases 16 and 17, which replay their bags
+    on the card while the main process runs phases 14 and 15: every phase is
+    host-bound and the card is mostly idle, so the script's time stays
+    under its limit on a slow host."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    return ProcessPoolExecutor(2, mp_context=multiprocessing.get_context("spawn"))
+
+
+def run_phases(pool, bag_pool, dev) -> int:
     import numpy as np
     import torch
 
@@ -2199,11 +2540,19 @@ def run_phases(pool, dev) -> int:
     # ---- 13. the visual loop detector alone ----
     loop_ms = loop_scene_phase(syn.loop_scene(), dev)
 
+    # ---- 16, 17: the bag-replay entry point, each in a process of its own,
+    # on the card beside phases 14 and 15 ----
+    shipped_inputs = write_shipped_inputs(streams["full"].get())
+    bag_jobs = [bag_pool.submit(bag_worker, "fixture", T_START),
+                bag_pool.submit(bag_worker, "shipped", T_START, shipped_inputs)]
+
     # ---- 14. config 5 at the parity scale ----
     par = lvi_parity_phase(streams["parity"], dev)
 
     # ---- 15. config 5 at the shipped scale ----
-    full, full_gated = lvi_full_phase(streams["full"], dev)
+    full, full_gated, full_rows = lvi_full_phase(streams["full"], dev)
+    (_, bag_fix), (_, bag_ship, ship_rows) = [job.result() for job in bag_jobs]
+    compare_with_full(ship_rows, full_rows)
     if "--loop" in sys.argv:
         lvi_loop_phase(streams["loop"], dev)
     for key in ("K1", "K2", "K3", "K4"):
@@ -2211,6 +2560,8 @@ def run_phases(pool, dev) -> int:
         by_path[key]["lvi_full"] = full["launches"][key]
         if full_gated is not full:
             by_path[key]["lvi_full_rebuild1"] = full_gated["launches"][key]
+        by_path[key]["bag_fixture"] = bag_fix[key]
+        by_path[key]["bag_shipped"] = bag_ship[key]
     launches = {k: sum(v.values()) for k, v in by_path.items()}
 
     def timing(key):

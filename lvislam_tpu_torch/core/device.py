@@ -7,13 +7,12 @@ import torch
 
 def resolve(device=None) -> torch.device:
     """``device`` as a ``torch.device``; None means the card (``cuda``).
-    Without a CUDA device None raises: the port runs on the CPU only when
-    asked to (``device="cpu"``)."""
-    if device is not None:
-        return torch.device(device)
-    if not torch.cuda.is_available():
+    Without a CUDA device, None or a ``cuda`` device raises: the port runs
+    on the CPU only when asked to (``device="cpu"``)."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: pass device='cpu' to run on the CPU")
-    return torch.device("cuda")
+    return dev
 
 
 def common(tensors, name: str) -> torch.device:

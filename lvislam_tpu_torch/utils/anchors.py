@@ -143,14 +143,216 @@ FUSION_REPLAY = {
 }
 
 
-def config_sha256(cfg) -> str:
-    """16 hex digits of sha256 over a configuration's fields (dataclasses
-    nested, by field name; tuples as lists), so a reference value names the
-    configuration that made it. The JAX package's dataclasses and the port's
-    have the same fields, so the same configuration hashes alike in both."""
+# The JAX package's `scripts/run_rosbag_lvi.py` on the CPU over the committed
+# fixture bag (`tests/data/fixture_mid360.db3`, with
+# `tests/data/fixture_{lidar,camera}.yaml`): the messages its reader yields
+# by kind and skips, the first message's stamp (s), sha256 of the 59 frames
+# as PIL decodes them (float32 / 255, in bag order), the `LviConfig` the
+# script builds (`config_fields`, and its `config_sha256`), and of the whole
+# replay the aligned ATE (m) of the TUM trajectory against the fixture's
+# ground truth (world seed 0, figure-8 3 m / 30 s at t + t0), the same with
+# one input a float32 step off (`ate_one_ulp_m`: the IMU's gyro or
+# accelerometer up, every scan point up or down; the JAX run's own spread,
+# which phase 16's gate spans as phase 14's spans two readings), the poses, the
+# keyframes, the frames, whether the VIO ended initialized and its failures;
+# `prefix`: the [t, x6] poses of its run over the first `prefix_seconds`
+# (`--max-seconds 1`). Recomputed by
+# ``tests/test_torch_rosbag_entry.py::test_jax_script_fixture_anchor`` (slow).
+ROSBAG_FIXTURE = {'messages': {'imu': 1200, 'livox': 59, 'image': 59},
+                  'skipped': 0,
+                  't0': 0.005,
+                  'frames_sha256': '9c1aa686bb9569b9',
+                  'config_sha256': '16e74e0383e26603',
+                  'config': {'lio': {'n_scan': 4,
+                                     'horizon': 900,
+                                     'point_capacity': 4096,
+                                     'imu_capacity': 64,
+                                     'ext_rot': ['1.0', '0.0', '0.0', '0.0', '1.0', '0.0', '0.0', '0.0', '1.0'],
+                                     'ext_rpy': ['1.0', '0.0', '0.0', '0.0', '1.0', '0.0', '0.0', '0.0', '1.0'],
+                                     'caps': {'max_keyframes': 512,
+                                              'kf_corner': 512,
+                                              'kf_surf': 2048,
+                                              'sel_keyframes': 48,
+                                              'map_corner': 16384,
+                                              'map_surf': 65536,
+                                              'scan_corner': 1024,
+                                              'scan_surf': 4096,
+                                              'max_loops': 32,
+                                              'max_gps': 64,
+                                              'loop_submap': 16384,
+                                              'icp_iters': 25,
+                                              'corner_hash_size': 16384,
+                                              'surf_hash_size': 65536,
+                                              'hash_bucket': 32,
+                                              'surf_hash_bucket': 16,
+                                              'pallas_knn': False,
+                                              'pallas_gn': False,
+                                              'corner_leaf_table': 32768,
+                                              'surf_leaf_table': 131072},
+                                     'params': {'mappingCornerLeafSize': '0.2',
+                                                'mappingSurfLeafSize': '0.4',
+                                                'surroundingKeyframeSearchRadius': '50.0',
+                                                'keyframeAddingDistThreshold': '0.3',
+                                                'keyframeAddingAngleThreshold': '0.1',
+                                                'imuRPYWeight': '0.01',
+                                                'z_tollerance': '1000.0',
+                                                'rotation_tollerance': '1000.0',
+                                                'useImuHeadingInitialization': False,
+                                                'livox_keyframe_interval': '1.0',
+                                                'historyKeyframeSearchRadius': '15.0',
+                                                'historyKeyframeSearchTimeDiff': '30.0',
+                                                'historyKeyframeSearchNum': 25,
+                                                'historyKeyframeFitnessScore': '0.3',
+                                                'edgeFeatureMinValidNum': 10,
+                                                'surfFeatureMinValidNum': 100,
+                                                'gpsCovThreshold': '2.0',
+                                                'poseCovThreshold': '25.0',
+                                                'degeneracyEigenThreshold': '100.0',
+                                                'nnRefreshEvery': 1,
+                                                'gatherOncePerScan': False,
+                                                'mapRebuildEvery': 1,
+                                                'constantVelocityGuess': True,
+                                                'vinsGuessMaxDeltaJump': '0.5',
+                                                'vinsGuessMaxRotRate': '3.0'},
+                                     'min_range': '1.0',
+                                     'max_range': '100.0',
+                                     'edge_threshold': '1.0',
+                                     'surf_threshold': '0.1',
+                                     'odometry_surf_leaf': '0.4',
+                                     'loop_closure_enabled': True,
+                                     'loop_every_n_scans': 10,
+                                     'exact_loam_selection': False,
+                                     'upload_batch': 1,
+                                     'pipelined_uploads': True,
+                                     'async_dispatch': True},
+                             'fusion': {'imuAccNoise': '0.003993957088823881',
+                                        'imuGyrNoise': '0.0015636343949698187',
+                                        'imuAccBiasN': '6.435665935353257e-05',
+                                        'imuGyrBiasN': '3.564031869636761e-05',
+                                        'imuGravity': '9.81',
+                                        'priorPoseSigma': '0.01',
+                                        'priorVelSigma': '10000.0',
+                                        'priorBiasSigma': '0.001',
+                                        'corrRotSigma': '0.05',
+                                        'corrTransSigma': '0.1',
+                                        'corrDegenerateSigma': '1.0',
+                                        'maxVelocity': '30.0',
+                                        'maxBias': '1.0',
+                                        'extTrans': ['0.0', '0.0', '0.0']},
+                             'vio_caps': {'window': 10,
+                                          'max_features': 128,
+                                          'imu_buf': 64,
+                                          'frame_features': 64,
+                                          'ex_pairs': 24},
+                             'vio_params': {'acc_n': '0.39939570888238807',
+                                            'gyr_n': '0.15636343949698187',
+                                            'acc_w': '0.006435665935353257',
+                                            'gyr_w': '0.003564031869636761',
+                                            'g_norm': '9.81',
+                                            'min_parallax': '0.021739130434782608',
+                                            'init_depth': '5.0',
+                                            'ba_threshold': '2.5',
+                                            'bg_threshold': '1.0',
+                                            'max_v_norm': '30.0',
+                                            'jump_t': '5.0',
+                                            'jump_z': '1.0',
+                                            'use_visual_init': True,
+                                            'estimate_extrinsic_rotation': False,
+                                            'ex_min_pairs': 10},
+                             'ba': {'window': 10,
+                                    'max_features': 128,
+                                    'focal': '460.0',
+                                    'iterations': 4,
+                                    'damping': '1e-05',
+                                    'estimate_td': False,
+                                    'estimate_extrinsic': False,
+                                    'cauchy_c': '1.0',
+                                    'solver': 'schur',
+                                    'ftol': '1e-06'},
+                             'tracker': {'max_cnt': 64,
+                                         'min_dist': 16,
+                                         'F_threshold': '1.0',
+                                         'equalize': False,
+                                         'focal_virtual': '460.0',
+                                         'border': 10,
+                                         'klt_levels': 3,
+                                         'klt_half': 10,
+                                         'klt_iters': 30,
+                                         'klt_patch': 32,
+                                         'min_track_for_F': 8},
+                             'camera': {'model_type': 'PINHOLE',
+                                        'image_width': 320,
+                                        'image_height': 240,
+                                        'xi': '1.40630886',
+                                        'k1': '0.0',
+                                        'k2': '0.0',
+                                        'p1': '0.0',
+                                        'p2': '0.0',
+                                        'gamma1': '200.0',
+                                        'gamma2': '200.0',
+                                        'u0': '160.0',
+                                        'v0': '120.0',
+                                        'kb_k2': '0.0',
+                                        'kb_k3': '0.0',
+                                        'kb_k4': '0.0',
+                                        'kb_k5': '0.0',
+                                        'scara_poly': ['0.0', '0.0', '0.0', '0.0', '0.0'],
+                                        'scara_inv_poly': ['0.0', '0.0', '0.0', '0.0', '0.0', '0.0', '0.0',
+                                                           '0.0', '0.0', '0.0', '0.0', '0.0', '0.0', '0.0',
+                                                           '0.0', '0.0', '0.0', '0.0', '0.0', '0.0'],
+                                        'scara_C': '1.0',
+                                        'scara_D': '0.0',
+                                        'scara_E': '0.0'},
+                             'loop_caps': {'max_keyframes': 1024,
+                                           'window_points': 150,
+                                           'extra_points': 256,
+                                           'vocab_words': 1024,
+                                           'recent_exclude': 200,
+                                           'min_loop_matches': 25},
+                             'image_height': 240,
+                             'image_width': 320,
+                             'use_lidar_depth': True,
+                             'lidar_skip': 1,
+                             'depth_cloud_slots': 12,
+                             'depth_cloud_points': 4096,
+                             'use_loop_detector': True,
+                             'vocab_path': 'auto',
+                             'mapping_process_interval': '0.15',
+                             'tic': ['0.0', '0.0', '0.0'],
+                             'qic': ['-0.5', '0.5', '-0.5', '0.5'],
+                             'rolling_shutter_tr': '0.0',
+                             'emit_imu_rate_odom': True,
+                             'metrics_path': None,
+                             'debug_dir': None,
+                             'debug_every': 10,
+                             'replay_batch': 1,
+                             'pipeline_devices': None},
+                  'ate_m': 0.05553884097066741,
+                  'ate_one_ulp_m': {'gyro_up': 0.0571281054759201, 'acc_up': 0.058365990068188475,
+                                    'xyz_up': 0.056506857263472716,
+                                    'xyz_down': 0.05991559389248252},
+                  'trajectory_points': 30,
+                  'keyframes': 20,
+                  'vio_frames': 59,
+                  'vio_initialized': True,
+                  'failure_count': 0,
+                  'prefix_seconds': 1.0,
+                  'prefix': [[0.045000000000000005, 0.0005676099099218845, 0.05053116753697395, 0.0, 0.0, 0.0,
+                              0.0],
+                             [0.245, 0.0025394365657120943, 0.051235098391771317, -0.0017781216884031892,
+                              0.202919602394104, 0.006839121226221323, 0.012453915551304817],
+                             [0.445, 0.0026421695947647095, 0.050023455172777176, -0.0074341315776109695,
+                              0.41066592931747437, -0.00030525019974447787, -0.0004436718299984932],
+                             [0.645, 0.0039663128554821014, 0.049137383699417114, -0.015000490471720695,
+                              0.6100593209266663, -0.0013696008827537298, 0.0007690397906117141],
+                             [0.8450000000000001, 0.00427257502451539, 0.0490410290658474, -0.025557726621627808,
+                              0.8127585053443909, -0.0021865300368517637, -0.010929427109658718]]}
+
+
+def config_fields(cfg) -> dict:
+    """A configuration's fields as plain JSON values: dataclasses nested as
+    dicts by field name, tuples as lists, floats as their repr."""
     import dataclasses
-    import hashlib
-    import json
 
     def plain(x):
         if dataclasses.is_dataclass(x):
@@ -161,5 +363,17 @@ def config_sha256(cfg) -> str:
             return repr(x)
         return x
 
-    text = json.dumps(plain(cfg), sort_keys=True)
+    return plain(cfg)
+
+
+def config_sha256(cfg) -> str:
+    """16 hex digits of sha256 over ``config_fields(cfg)``, so a reference
+    value names the configuration that made it. The JAX package's
+    dataclasses and the port's have the same fields, so the same
+    configuration hashes alike in both."""
+    import hashlib
+    import json
+
+    text = json.dumps(config_fields(cfg), sort_keys=True)
     return hashlib.sha256(text.encode()).hexdigest()[:16]
+

@@ -1,7 +1,8 @@
 """Carry state across from the JAX package.
 
-Turns a JAX ``LioMapState`` (any NamedTuple or dataclass tree whose leaves
-go through ``np.asarray``), ``LioCaps``, ``LioParams``, ``LioConfig``,
+Turns a JAX ``SystemConfig``, ``LioMapState`` (any NamedTuple or dataclass
+tree whose leaves go through ``np.asarray``), ``LioCaps``, ``LioParams``,
+``LioConfig``,
 ``CameraIntrinsics``, ``TrackerParams``, ``TrackerState``, and the IMU and
 VIO side's ``FusionState``, ``PreintState``, ``WindowState``, ``Prior``,
 ``FeatureTable``, ``VioState``, the loop detector's ``LoopCaps`` and
@@ -18,6 +19,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from ..core import config as sc
 from ..core.config import CameraIntrinsics
 from ..models import pipeline as lvi
 from ..models.lio import imu_fusion, mapping, pipeline
@@ -94,6 +96,14 @@ def config_from_jax(jcfg) -> pipeline.LioConfig:
 
 def camera_from_jax(jcam) -> CameraIntrinsics:
     return _dc(CameraIntrinsics, jcam)
+
+
+def system_config_from_jax(jcfg) -> sc.SystemConfig:
+    """A JAX ``SystemConfig`` (``core/config.py``: lidar, VINS with its
+    camera, capacities) -> the port's."""
+    vins = _dc(sc.VinsConfig, jcfg.vins, camera=camera_from_jax(jcfg.vins.camera))
+    return _dc(sc.SystemConfig, jcfg, lidar=_dc(sc.LidarConfig, jcfg.lidar), vins=vins,
+               caps=_dc(sc.Capacities, jcfg.caps))
 
 
 def tracker_params_from_jax(jparams) -> ft.TrackerParams:

@@ -289,14 +289,16 @@ def test_port_imports_no_jax():
         "import sys, pkgutil, importlib, lvislam_tpu_torch\n"
         "for m in pkgutil.walk_packages(lvislam_tpu_torch.__path__, 'lvislam_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
-        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
-        "       or m == 'lvislam_tpu' or m.startswith('lvislam_tpu.')]\n"
+        "import chip_smoke\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'lvislam_tpu', 'yaml', 'PIL')]\n"
         "assert not bad, bad\n"
         "need = ['ops.preintegration', 'ops.triangulate', 'ops.handeye', 'ops.ba', 'ops.dense',\n"
         "        'models.lio.imu_fusion', 'models.vio.feature_manager', 'models.vio.initializer',\n"
         "        'models.vio.estimator', 'models.vio.pipeline', 'utils.convert', 'utils.anchors',\n"
         "        'utils.bus', 'utils.metrics', 'ops.brief', 'ops.ransac', 'models.loop.loop_detector',\n"
-        "        'models.vio.frame_step', 'models.pipeline']\n"
+        "        'models.vio.frame_step', 'models.pipeline', 'core.config', 'core.yamlite',\n"
+        "        'utils.bag', 'utils.jpeg', 'utils.checkpoint', 'utils.bag_writer',\n"
+        "        'scripts.run_rosbag_lvi']\n"
         "missing = [m for m in need if 'lvislam_tpu_torch.' + m not in sys.modules]\n"
         "assert not missing, missing\n"
         "print('clean', len([m for m in sys.modules if m.startswith('lvislam_tpu_torch')]))\n"
