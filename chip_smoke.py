@@ -107,10 +107,10 @@ Phases, one line each:
    (if not, a second run with mapRebuildEvery=1 is printed beside it and
    gated). The streams of phases 14 and 15 are raycast by worker processes
    while phases 1-12 run.
-Phases 16 and 17 run in two spawned processes of their own, on the card,
-while the main process runs phases 14 and 15 (every phase is host-bound and
-the card mostly idle; so the host times of phases 14-17 are taken with
-three processes on the card):
+Phases 15, 16, 17, 20 and 21 run in five spawned processes of their own,
+on the card, while the main process runs phases 18, 19 and 14 (every phase
+is host-bound and the card mostly idle; so the host times of phases 14-21
+are taken with six processes on the card):
 
 16. bag_fixture: the bag-replay entry point (``python -m
    lvislam_tpu_torch.scripts.run_rosbag_lvi``, called in-process on the
@@ -137,6 +137,41 @@ three processes on the card):
    ``[bag_shipped_vs_full]`` gives the max and RMS distance of its poses
    from phase 15's at the same stamps.
 
+18. host_tools: the native host library (``utils/native``, built from
+   ``native/src/lvislam_native.cpp``) must have built, and its
+   ``decode_pointcloud2``, ``imu_window`` and ``voxel_prefilter`` equal the
+   NumPy path exactly on ``tests/test_native.py``'s blob and on one of the
+   bench's 4 x 6000 scans; phase 11's first 752x480 frame through the
+   port's PNG writer and decoder byte for byte (ms a frame); the exact
+   greedy LOAM pick (``loam.select_edges``) on the card equal to the port's
+   CPU run on the same curvature input, timed by ``utils/profiling.
+   device_timer``.
+19. calibration: ``tests/test_chessboard_calibration_e2e.py``'s eight
+   rendered views detected (``find_chessboard``) and calibrated
+   (``calibrate``, PINHOLE, 25 iterations) on the card under that test's
+   gates (every view found, corners within 0.7 px, rms < 0.3 px, focal
+   within 1 %, principal point within 10 px); the MEI case of
+   ``tests/test_calibration.py`` under its own (rms < 0.2 px, principal
+   point within 2 %); ms a solve.
+20. euroc: phase 11's 5 s stream written as a EuRoC ``mav0`` folder (PNG
+   frames by the port's writer, IMU stamps in ns at the MH_01 epoch) with
+   a reference-format camera YAML of phase 11's rig, through the port's
+   ``run_euroc_vio`` at 752x480 with CLAHE. Gates: the decoded frames'
+   sha256 equal to phase 11's; K3 = K4 = frames; the TUM rows finite,
+   increasing and equal to the runner's trajectory; no "misinitialized"
+   outcome. The status and ATE are printed beside phase 11's entry 0 (the
+   same default draws; "ok" is not gated, as there).
+21. synthetic: the port's ``run_synthetic_lvi`` at its default 6 s with
+   ``--save-map``, ``--checkpoint`` and ``--html``. Gates: VIO initialized
+   with no failure; ATE within LVI_BAND of the worst JAX CPU reading of the
+   same run (``utils/anchors.SYNTHETIC_LVI``: its own and four with one
+   input a float32 step off); the PCD, PPM and HTML files written; the
+   checkpoint reloaded by ``load_state`` equal to the state.
+
+Phase 14's 4 s repeat runs with ``debug_dir`` set (``DEBUG_EVERY``): it
+must still be bit-identical to the first run and write the feature and
+depth overlays at that stride.
+
 ``--loop`` adds the 38 s revisit arm of ``bench.py:770-887`` on the parity
 configuration (192 keyframes, 16 loop slots): at least one loop factor.
 
@@ -154,8 +189,10 @@ kernels.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -1440,7 +1477,8 @@ def check_vio(name, cfg, stream, ref, dev, n_prof: int = 0):
     as of JAX's over the same seeds, less VIO_OK_SLACK, and one at least.
     The first "ok" run is the one whose frame times, host reads and K3/K4
     launches are reported, and it is run again: the second trajectory must
-    be bit-identical. Returns that run's (K3, K4) launch counts."""
+    be bit-identical. Returns that run's (K3, K4) launch counts and every
+    run's outcome by seed."""
     import numpy as np
     import torch
 
@@ -1514,7 +1552,7 @@ def check_vio(name, cfg, stream, ref, dev, n_prof: int = 0):
         # launches through torch.func take tens of seconds of host time
         profile_vio(name, cfg, stream, dev, vio_sampler(seed), min(n_prof, 2, n_frames - s0),
                     float(np.mean(again["walls"][s0:])) * 1e3)
-    return run["launched"]
+    return run["launched"], {k: r["outcome"] for k, r in runs.items()}
 
 
 def profile_vio(name, cfg, stream, dev, sampler, n_prof: int, steady_ms: float):
@@ -1635,55 +1673,23 @@ def lvi_stream(pool, **kw) -> Prefetch:
 
 def lvi_parity_config(kernels: bool = True):
     """Config 5 at the parity scale: `tests/test_lvi_system.py:make_system`
-    with `bench.py:apply_perf_knobs` (throttle 0.15 s, "schur",
-    nnRefreshEvery=2, mapRebuildEvery=1, K2 off). `kernels`: K1 on with
-    `gatherOncePerScan`, as the bench runs it on an accelerator; without,
-    the CPU anchor's settings (`utils/anchors.LVI_PARITY`)."""
-    import numpy as np
-    from scipy.spatial.transform import Rotation as Rsc
+    (the port's copy, `run_synthetic_lvi.system_config`) with
+    `bench.py:apply_perf_knobs` (throttle 0.15 s, "schur", nnRefreshEvery=2,
+    mapRebuildEvery=1, K2 off). `kernels`: K1 on with `gatherOncePerScan`,
+    as the bench runs it on an accelerator; without, the CPU anchor's
+    settings (`utils/anchors.LVI_PARITY`)."""
+    import dataclasses
 
-    from lvislam_tpu_torch.core.config import CameraIntrinsics
-    from lvislam_tpu_torch.models import pipeline as lvi
-    from lvislam_tpu_torch.models.lio import mapping
-    from lvislam_tpu_torch.models.lio.pipeline import LioConfig
-    from lvislam_tpu_torch.models.loop import loop_detector as ld
-    from lvislam_tpu_torch.models.vio import estimator as est
-    from lvislam_tpu_torch.models.vio import feature_manager as fm
-    from lvislam_tpu_torch.models.vio import feature_tracker as ft
-    from lvislam_tpu_torch.ops import ba
-    from lvislam_tpu_torch.utils import synthetic as syn
+    from lvislam_tpu_torch.scripts.run_synthetic_lvi import system_config
 
-    lio = LioConfig(
-        n_scan=4, horizon=900, point_capacity=4096,
-        caps=mapping.LioCaps(
-            max_keyframes=64, kf_corner=256, kf_surf=1024, sel_keyframes=16,
-            map_corner=4096, map_surf=16384, scan_corner=512, scan_surf=2048,
-            max_loops=8, max_gps=8, loop_submap=4096, icp_iters=10,
-            pallas_knn=kernels, pallas_gn=False),
-        params=mapping.LioParams(
-            keyframeAddingDistThreshold=0.3, keyframeAddingAngleThreshold=0.1,
-            livox_keyframe_interval=0.5, degeneracyEigenThreshold=25.0,
-            nnRefreshEvery=2, mapRebuildEvery=1, gatherOncePerScan=kernels),
-        loop_every_n_scans=20,
-    )
-    cam = CameraIntrinsics(model_type="PINHOLE", gamma1=200.0, gamma2=200.0, u0=160.0,
-                           v0=120.0, k1=0.0, k2=0.0, p1=0.0, p2=0.0, image_width=320,
-                           image_height=240)
-    qic = np.roll(Rsc.from_matrix(syn.R_CAM_BODY).as_quat(), 1)
-    return lvi.LviConfig(
-        lio=lio,
-        vio_caps=fm.VioCaps(window=10, max_features=128, imu_buf=32, frame_features=64),
-        vio_params=est.VioParams(g_norm=syn.GRAVITY),
-        ba=ba.BAConfig(window=10, max_features=128, iterations=4, estimate_td=False,
-                       estimate_extrinsic=False, solver="schur"),
-        tracker=ft.TrackerParams(max_cnt=64, min_dist=16, klt_levels=2, klt_half=7,
-                                 klt_iters=20, equalize=False),
-        camera=cam,
-        loop_caps=ld.LoopCaps(max_keyframes=128, window_points=64, extra_points=128,
-                              recent_exclude=10, min_loop_matches=15),
-        image_height=240, image_width=320, use_lidar_depth=True, lidar_skip=1,
-        use_loop_detector=False, qic=tuple(qic.tolist()), mapping_process_interval=0.15,
-    )
+    cfg = system_config()
+    lio = dataclasses.replace(
+        cfg.lio,
+        caps=dataclasses.replace(cfg.lio.caps, pallas_knn=kernels, pallas_gn=False),
+        params=dataclasses.replace(cfg.lio.params, nnRefreshEvery=2, mapRebuildEvery=1,
+                                   gatherOncePerScan=kernels))
+    return dataclasses.replace(cfg, lio=lio, ba=dataclasses.replace(cfg.ba, solver="schur"),
+                               mapping_process_interval=0.15)
 
 
 def lvi_full_config(map_rebuild_every: int | None = None):
@@ -1938,26 +1944,35 @@ def lvi_parity_phase(stream, dev):
                              f"failures {r['failure_count']}, vins_odom {r['vins_odom']}")
     if not r["ate_m"] <= limit:
         raise AssertionError(f"lvi_parity: ATE {r['ate_m']:.4f} m over {limit:.4f} m")
-    # determinism: the first 4 s again
-    sys2, _, _ = run_lvi(cfg, data, dev, LVI_WARM_S, LVI_REPEAT_S)
+    # determinism: the first 4 s again, with the debug hooks on (`debug_dir`):
+    # they read the device back at their stride and must change nothing
+    dbg = os.path.join(ROOT, ".chip_tmp", "lvi_debug")
+    shutil.rmtree(dbg, ignore_errors=True)
+    sys2, _, _ = run_lvi(dataclasses.replace(cfg, debug_dir=dbg, debug_every=DEBUG_EVERY),
+                         data, dev, LVI_WARM_S, LVI_REPEAT_S)
     rows = lambda s: np.stack([np.r_[t, x6] for t, x6 in s.trajectory if t < LVI_REPEAT_S])
     a, b = rows(sys_), rows(sys2)
+    files = sorted(os.listdir(dbg)) if os.path.isdir(dbg) else []
+    want = sorted(f"{kind}_{n:05d}.ppm" for kind in ("feature", "depth")
+                  for n in range(DEBUG_EVERY, sys2.vio_frames + 1, DEBUG_EVERY))
     log("lvi_parity_determinism", seconds=LVI_REPEAT_S, rows=len(b), sha256=sha256(b),
-        identical=bool(np.array_equal(a, b)))
+        identical=bool(np.array_equal(a, b)), debug_every=DEBUG_EVERY,
+        debug_files=len(files), debug_files_expected=len(want))
     if not np.array_equal(a, b):
-        raise AssertionError("lvi_parity determinism: the first 4 s differ")
+        raise AssertionError("lvi_parity determinism: the first 4 s differ (debug hooks on)")
+    if files != want or not all(os.path.getsize(os.path.join(dbg, f)) > 0 for f in files):
+        raise AssertionError(f"lvi_parity debug: wrote {files}, expected {want}")
     return r
 
 
-def lvi_full_phase(stream, dev):
-    """Phase 15: config 5 at the shipped scale, 2 s warm then 5 s timed.
-    Returns the first run's summary, the gated run's, and the first run's
-    trajectory rows [t, x6]."""
+def lvi_full_phase(data, dev):
+    """Phase 15: config 5 at the shipped scale over `data` (the stream's
+    `lvi_sequence` dict), 2 s warm then 5 s timed. Returns the first run's
+    summary, the gated run's, and the first run's trajectory rows [t, x6]."""
     import numpy as np
 
     from lvislam_tpu_torch.utils import synthetic as syn
 
-    data = stream.get()
     traj = syn.figure8_trajectory(scale=3.0, period=30.0)
     runs = {}
     for rebuild in (None, 1):
@@ -1972,8 +1987,7 @@ def lvi_full_phase(stream, dev):
                  map_rebuild_every=cfg.lio.params.mapRebuildEvery)
         runs[rebuild] = (r, rec, np.stack([np.r_[t, x6] for t, x6 in sys_.trajectory]))
         log("lvi_full" if rebuild is None else "lvi_full_rebuild1", seconds=LVI_FULL_S,
-            timed_s=LVI_FULL_S - LVI_WARM_S, ate_limit_m=LVI_FULL_ATE_M,
-            stream_wait_s=round(stream.waited_s, 1), **fmt_run(r))
+            timed_s=LVI_FULL_S - LVI_WARM_S, ate_limit_m=LVI_FULL_ATE_M, **fmt_run(r))
         if r["ate_m"] <= LVI_FULL_ATE_M:
             break
         print(f"  lvi_full: ATE {r['ate_m']:.4f} m over {LVI_FULL_ATE_M} m with "
@@ -2302,11 +2316,10 @@ def compare_with_full(bag_rows, full_rows):
         rms_m=round(float(np.sqrt(np.mean(d ** 2))), 5))
 
 
-def bag_worker(phase: str, t_start: float, inputs=None):
-    """Phase 16 ("fixture") or 17 ("shipped") in a process of its own, on the
-    card, deterministic as the main process; its `t=` counts from `t_start`
-    (the main process's start; `perf_counter` is the machine's monotonic
-    clock)."""
+def phase_worker_init(t_start: float):
+    """A phase pool process: deterministic as the main process; its `t=`
+    counts from `t_start` (the main process's start; `perf_counter` is the
+    machine's monotonic clock)."""
     import torch
 
     global T_START
@@ -2314,8 +2327,427 @@ def bag_worker(phase: str, t_start: float, inputs=None):
     import lvislam_tpu_torch  # noqa: F401  (full-f32 math settings)
 
     torch.use_deterministic_algorithms(True)
-    dev = torch.device("cuda", 0)
-    return bag_fixture_phase(dev) if phase == "fixture" else bag_shipped_phase(inputs, dev)
+
+
+# ---------------------------------------------------------------------------
+# Phases 18-21: the host tools, the calibration tool and the two entry
+# points of slice 6b
+# ---------------------------------------------------------------------------
+
+EUROC_T0_NS = 1_403_636_580_000_000_000  # MH_01-era epoch (tests/test_euroc_e2e.py)
+CALIB_ROWS, CALIB_COLS, CALIB_SQ = 5, 7, 0.03  # tests/test_chessboard_calibration_e2e.py
+CALIB_F, CALIB_CX, CALIB_CY = 250.0, 160.0, 120.0
+MEI_TRUTH = [1.0, 900.0, 890.0, 500.0, 300.0, -0.03, 0.01, 5e-4, -2e-4]  # tests/test_calibration.py
+MEI_PERTURB = [0.1, 0.05, -0.05, 0.01, -0.01, -1.0, -1.0, -1.0, -1.0]
+SYNTHETIC_S = 6.0  # run_synthetic_lvi's default duration
+DEBUG_EVERY = 5  # phase 14's repeat drops its overlays every 5 frames
+
+
+def drain(dev):
+    """Wait for the card's queued work (nothing to wait for on the CPU)."""
+    import torch
+
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def native_blob(n=100, step=20, seed=3):
+    """`tests/test_native.py:make_blob`: n packed points (x, y, z,
+    intensity f32, ring u16; one NaN row), no time field."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    raw = np.zeros((n, step), np.uint8)
+    xyz = rng.uniform(-10, 10, (n, 3)).astype(np.float32)
+    xyz[5] = np.nan
+    inten = rng.uniform(0, 255, n).astype(np.float32)
+    ring = rng.integers(0, 4, n).astype(np.uint16)
+    raw[:, 0:12] = xyz.view(np.uint8).reshape(n, 12)
+    raw[:, 12:16] = inten[:, None].view(np.uint8)
+    raw[:, 16:18] = ring[:, None].view(np.uint8)
+    return raw.tobytes()
+
+
+def native_calls(scan):
+    """The native library's three entry points on `tests/test_native.py`'s
+    blob and on one shipped-scale scan (packed as a PointCloud2 with a
+    time field)."""
+    import numpy as np
+
+    n = len(scan["xyz"])
+    raw = np.zeros((n, 22), np.uint8)
+    raw[:, 0:12] = np.asarray(scan["xyz"], np.float32).view(np.uint8).reshape(n, 12)
+    raw[:, 12:16] = np.asarray(scan["intensity"], np.float32)[:, None].view(np.uint8)
+    raw[:, 16:18] = np.asarray(scan["ring"], np.uint16)[:, None].view(np.uint8)
+    raw[:, 18:22] = np.asarray(scan["time"], np.float32)[:, None].view(np.uint8)
+    xyz = np.asarray(scan["xyz"], np.float32)
+    valid = np.ones(n, np.uint8)
+    stamps = np.arange(2000) * 0.005 + 0.0012
+    gyro = np.random.default_rng(2).normal(size=(2000, 3)).astype(np.float32)
+    return [
+        ("decode_pointcloud2", (native_blob(), 100, 20,
+                                dict(x=0, y=4, z=8, intensity=12, ring=16, time=-1)),
+         dict(capacity=128)),
+        ("decode_pointcloud2", (raw.tobytes(), n, 22,
+                                dict(x=0, y=4, z=8, intensity=12, ring=16, time=18)),
+         dict(capacity=n)),
+        ("imu_window", (stamps, gyro, gyro * 3 + 9.8, 1.0, 1.1, 64), {}),
+        ("voxel_prefilter", (xyz, valid, 0.4, n), {}),
+        ("voxel_prefilter", (xyz, valid, 0.2, 4096), {}),
+    ]
+
+
+def host_tools_phase(frame, scans, dev):
+    """Phase 18: the native library built and equal to its NumPy path; a
+    752x480 frame through the PNG writer and decoder byte for byte; the
+    exact LOAM selection on the card equal to the port's CPU run; one
+    `device_timer` reading."""
+    import numpy as np
+    import torch
+
+    from lvislam_tpu_torch.models.lio import frontend as tfe
+    from lvislam_tpu_torch.models.lio import pipeline as tpl
+    from lvislam_tpu_torch.ops import loam
+    from lvislam_tpu_torch.utils import native, png
+    from lvislam_tpu_torch.utils.profiling import device_timer
+
+    scan = scans[5][0]  # one of the bench's 4 x 6000 scans
+    t0 = time.perf_counter()
+    if not native.available():
+        raise AssertionError("host_tools: the native library did not build (NumPy path)")
+    build_s = time.perf_counter() - t0
+    timings = {}
+    for name, args, kw in native_calls(scan):
+        fn = getattr(native, name)
+        t1 = time.perf_counter()
+        mine = fn(*args, **kw)
+        timings[name] = timings.get(name, 0.0) + time.perf_counter() - t1
+        lib, tried = native._lib, native._tried
+        native._lib, native._tried = None, True
+        try:
+            plain = fn(*args, **kw)
+        finally:
+            native._lib, native._tried = lib, tried
+        for a, b in zip(mine, plain):
+            if not np.array_equal(np.asarray(a), np.asarray(b)):
+                raise AssertionError(f"host_tools: native {name} differs from its NumPy path")
+    # PNG: phase 11's first frame as 8 bits, written and read back
+    u8 = np.round(np.asarray(frame) * 255.0).astype(np.uint8)
+    t1 = time.perf_counter()
+    blob = png.encode(u8)
+    enc_ms = (time.perf_counter() - t1) * 1e3
+    dec = []
+    for _ in range(3):
+        t1 = time.perf_counter()
+        back = png.decode_gray(blob)
+        dec.append((time.perf_counter() - t1) * 1e3)
+    if not np.array_equal(back, u8):
+        raise AssertionError("host_tools: the PNG round trip changed the frame")
+    # the exact greedy LOAM selection: the card against the port's CPU run
+    cfg = full_width_config()
+    P = cfg.point_capacity
+    buf = torch.from_numpy(tpl.pack_scan(cfg, *scans[5]))
+    pts = buf[: P * 6].reshape(6, P)
+    M = cfg.imu_capacity
+    imu = buf[P * 6: P * 6 + M * 8].view(torch.float32).reshape(M, 4)
+    misc = buf[P * 6 + M * 8:].view(torch.float32)
+    rv = pts[4].to(torch.int32)
+    proj = tfe.project_scan(pts[0:3].float().T * tpl.POS_SCALE, pts[3].float(), rv % 256,
+                            pts[5].float() * tpl.TIME_SCALE, rv >= 256, imu[:, 0], imu[:, 1:4],
+                            misc[0].to(torch.int32), misc[1:4], misc[4] > 0.5,
+                            n_scan=cfg.n_scan, horizon=cfg.horizon,
+                            min_range=cfg.min_range, max_range=cfg.max_range)
+    args = (loam.curvature(proj.point_range, proj.valid), proj.point_col,
+            loam.occlusion_mask(proj.point_range, proj.point_col, proj.valid), proj.valid,
+            proj.start_ring_index, proj.end_ring_index, cfg.edge_threshold)
+    cpu = loam.select_edges(*args)
+    box = {}
+    with device_timer("select_edges", box, device=dev):
+        card = loam.select_edges(*[a.to(dev) if torch.is_tensor(a) else a for a in args])
+    if not torch.equal(card.cpu(), cpu):
+        raise AssertionError("host_tools: select_edges on the card differs from the CPU run")
+    log("host_tools", native=True, native_build_s=round(build_s, 3),
+        native_ms={k: round(v * 1e3, 3) for k, v in timings.items()},
+        png_bytes=len(blob), png_encode_ms=round(enc_ms, 2),
+        png_decode_ms_per_frame=round(float(np.median(dec)), 2), png_round_trip=True,
+        select_edges_points=P, select_edges_edges=int(cpu.sum()), select_edges_equal=True,
+        device_timer_select_edges_ms=round(box["select_edges"] * 1e3, 3))
+    return float(np.median(dec))
+
+
+def calibration_phase(dev):
+    """Phase 19: `tests/test_chessboard_calibration_e2e.py`'s eight rendered
+    views detected and calibrated on the card, under that test's gates; the
+    MEI case of `tests/test_calibration.py` under its own."""
+    import numpy as np
+    import torch
+    from scipy.spatial import cKDTree
+
+    from lvislam_tpu_torch.ops import calibration as cal
+    from lvislam_tpu_torch.ops import chessboard as cb
+    from lvislam_tpu_torch.utils import synthetic as syn
+    from lvislam_tpu_torch.utils.profiling import device_timer
+
+    views = syn.calibration_board_poses()
+    img_pts, worst, detect = [], 0.0, {}
+    for k, (rv, tv) in enumerate(views):
+        Hm = syn.board_view_homography(rv, tv, CALIB_F, CALIB_CX, CALIB_CY, CALIB_SQ)
+        img, true_pix = syn.render_board(Hm, CALIB_ROWS, CALIB_COLS, H=240, W=320, seed=7)
+        with device_timer(f"d{k}", detect, device=dev):
+            corners, found = cb.find_chessboard(torch.as_tensor(img, device=dev),
+                                                CALIB_ROWS, CALIB_COLS)
+        if not bool(found):
+            raise AssertionError(f"calibration: board not found in view {k}")
+        c = corners.cpu().numpy()
+        d, idx = cKDTree(c).query(true_pix)
+        if sorted(idx.tolist()) != list(range(CALIB_ROWS * CALIB_COLS)) or d.max() >= 0.7:
+            raise AssertionError(f"calibration: view {k} corners off (max {d.max():.3f} px)")
+        worst = max(worst, float(d.max()))
+        img_pts.append(c[idx])
+    obj = cb.board_object_points(CALIB_ROWS, CALIB_COLS, CALIB_SQ, device=dev)[:, :2]
+    V, N = len(views), CALIB_ROWS * CALIB_COLS
+    f32 = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)  # noqa: E731
+    args = (obj, f32(np.stack(img_pts)), torch.ones((V, N), dtype=torch.bool, device=dev),
+            f32([CALIB_F * 1.12, CALIB_F * 0.9, CALIB_CX + 6, CALIB_CY - 5, 0, 0, 0, 0]),
+            f32(np.stack([v[0] for v in views]) + 0.02), f32(np.stack([v[1] for v in views]) * 1.08))
+    cal.calibrate(*args, model_type="PINHOLE", iterations=25)  # warm
+    box = {}
+    with device_timer("pinhole", box, device=dev):
+        res = cal.calibrate(*args, model_type="PINHOLE", iterations=25)
+    est = res.intrinsics.cpu().numpy()
+    rms = float(res.rms_px)
+    ok = (rms < 0.3 and abs(est[0] / CALIB_F - 1) < 0.01 and abs(est[1] / CALIB_F - 1) < 0.01
+          and np.abs(est[2:4] - [CALIB_CX, CALIB_CY]).max() < 10.0)
+    # the MEI case (20 iterations), under tests/test_calibration.py's bounds
+    truth = np.asarray(MEI_TRUTH, np.float32)
+    board, uv, rv, tv = syn.calibration_views(
+        lambda pc: cal._project(torch.as_tensor(truth), torch.as_tensor(pc), "MEI").numpy(), truth)
+    margs = (f32(board), f32(uv), torch.ones(uv.shape[:2], dtype=torch.bool, device=dev),
+             f32(truth * (1 + np.asarray(MEI_PERTURB))), f32(rv + 0.02), f32(tv * 1.05))
+    with device_timer("mei", box, device=dev):
+        mres = cal.calibrate(*margs, model_type="MEI", iterations=20)
+    mest, mrms = mres.intrinsics.cpu().numpy(), float(mres.rms_px)
+    mok = mrms < 0.2 and np.all(np.abs(mest[3:5] / truth[3:5] - 1) < 2e-2)
+    log("calibration", views=V, corners_max_err_px=round(worst, 4),
+        detect_ms_per_view=round(float(np.mean(list(detect.values()))) * 1e3, 2),
+        pinhole_intrinsics=[round(float(x), 4) for x in est[:4]], pinhole_rms_px=round(rms, 5),
+        pinhole_ms_per_solve=round(box["pinhole"] * 1e3, 2), pinhole_iterations=25,
+        mei_intrinsics=[round(float(x), 4) for x in mest[:5]], mei_rms_px=round(mrms, 5),
+        mei_ms_per_solve=round(box["mei"] * 1e3, 2), mei_iterations=20)
+    if not ok:
+        raise AssertionError(f"calibration: pinhole solve off: {est[:4]}, rms {rms:.4f} px")
+    if not mok:
+        raise AssertionError(f"calibration: MEI solve off: {mest[:5]}, rms {mrms:.4f} px")
+
+
+def write_euroc_camera_yaml(path: str):
+    """`tests/data/fixture_camera.yaml` with phase 11's rig in place of the
+    fixture's: 752x480 pinhole at f = 458.654 (distortion out), CLAHE on,
+    150 features at 30 px, VIO noise at `VioParams()`, 6 BA iterations, td
+    estimated, freq 10, the renderer's mount. Checked by loading it through
+    the port's `run_euroc_vio.build_config`: the result is `vio_config(True)`
+    but for the slots (max(150, 128), as the script sizes them)."""
+    import dataclasses
+    import re
+
+    from lvislam_tpu_torch.models.vio import estimator as est
+    from lvislam_tpu_torch.scripts import run_euroc_vio
+
+    p = est.VioParams()
+    full = vio_config(True)
+    cam = full.camera
+    fields = {"image_width": cam.image_width, "image_height": cam.image_height,
+              "fx": cam.gamma1, "fy": cam.gamma2, "cx": cam.u0, "cy": cam.v0,
+              "acc_n": p.acc_n, "gyr_n": p.gyr_n, "acc_w": p.acc_w, "gyr_w": p.gyr_w,
+              "g_norm": p.g_norm, "max_cnt": 150, "min_dist": 30, "freq": 10, "equalize": 1,
+              "max_num_iterations": 6, "estimate_td": 1}
+    with open(os.path.join(ROOT, "tests", "data", "fixture_camera.yaml")) as f:
+        text = f.read()
+    for key, v in fields.items():
+        text, n = re.subn(rf"(^\s*{key}: ).*$", lambda m: m.group(1) + repr(v), text, flags=re.M)
+        if n != 1:
+            raise AssertionError(f"euroc: {key} not found once in fixture_camera.yaml")
+    with open(path, "w") as f:
+        f.write(text)
+    got = run_euroc_vio.build_config(path)
+    want = dataclasses.replace(
+        full, caps=dataclasses.replace(full.caps, max_features=150),
+        ba=dataclasses.replace(full.ba, max_features=150))
+    if got != want:
+        raise AssertionError(f"euroc: the camera YAML loads as {got}, not {want}")
+    return path
+
+
+def write_euroc_inputs(stream, out: str):
+    """Phase 11's stream (events, gyro, acc, frames) as an EuRoC mav0 folder (`utils/bag_writer.
+    write_euroc`: 8-bit PNG frames by the port's writer, IMU stamps in ns at
+    the MH_01 epoch) and the camera YAML beside it. Returns (mav0, YAML)."""
+    import shutil
+
+    import numpy as np
+
+    from lvislam_tpu_torch.utils import bag_writer
+
+    events, gyro, acc, frames = stream
+    root = os.path.join(out, "mav0")
+    shutil.rmtree(root, ignore_errors=True)
+    imu = [(t, i) for t, kind, i in events if kind == "imu"]
+    img = [(t, i) for t, kind, i in events if kind == "img"]
+    bag_writer.write_euroc(root, EUROC_T0_NS, [t for t, _ in imu], [gyro[i] for _, i in imu],
+                           [acc[i] for _, i in imu], [t for t, _ in img],
+                           [np.round(frames[i] * 255.0).astype(np.uint8) for _, i in img])
+    return root, write_euroc_camera_yaml(os.path.join(out, "euroc_camera.yaml"))
+
+
+def euroc_phase(stream, dev, entry0: dict):
+    """Phase 20: the port's `run_euroc_vio` on phase 11's stream (events,
+    gyro, acc, frames; the trajectory is rebuilt here) written as a
+    EuRoC folder, 752x480 with CLAHE; K3 and K4 counted from 0 around the
+    call. Gates: the decoded frames are phase 11's; K3 = K4 = frames; the
+    TUM rows finite, increasing and the runner's trajectory; no
+    "misinitialized" outcome. The status and ATE are printed beside phase
+    11's entry 0 and the JAX CPU run of the same folder."""
+    import hashlib
+
+    import numpy as np
+    import torch
+
+    from lvislam_tpu_torch.core.hostsync import host_bool, host_int
+    from lvislam_tpu_torch.ops import clahe
+    from lvislam_tpu_torch.scripts import run_euroc_vio as script
+    from lvislam_tpu_torch.utils import anchors
+    from lvislam_tpu_torch.utils.bag import euroc_reader
+
+    from lvislam_tpu_torch.utils import synthetic as syn
+
+    events, _, _, frames = stream
+    traj = syn.figure8_trajectory(scale=1.5, period=8.0)  # phase 11's (`vio_input_jobs`)
+    out = os.path.join(ROOT, ".chip_tmp", "euroc")
+    os.makedirs(out, exist_ok=True)
+    t0 = time.perf_counter()
+    root, yaml = write_euroc_inputs(stream, out)
+    write_s = time.perf_counter() - t0
+    want = hashlib.sha256()
+    for fr in frames:
+        want.update(np.ascontiguousarray(fr).tobytes())
+    got, n_img, t0 = hashlib.sha256(), 0, time.perf_counter()
+    for _, _, kind, msg in euroc_reader(root):
+        if kind == "image":
+            got.update(np.ascontiguousarray(msg["image"]).tobytes())
+            n_img += 1
+    decode_ms = (time.perf_counter() - t0) / max(n_img, 1) * 1e3
+    if got.hexdigest() != want.hexdigest():
+        raise AssertionError("euroc: the decoded frames are not phase 11's")
+    tum_path = os.path.join(out, "trajectory.tum")
+    n_track = [0]
+    plain_track = script.VioRunner.track
+
+    def track(self, t, image):
+        n_track[0] += 1
+        return plain_track(self, t, image)
+
+    script.VioRunner.track = track
+    try:
+        clahe.HIST_LAUNCHES = clahe.APPLY_LAUNCHES = 0
+        t0 = time.perf_counter()
+        runner = script.main([root, "--camera-yaml", yaml, "--max-seconds", "5",
+                              "--out", tum_path, "--device", str(dev)])
+        drain(dev)
+        wall = time.perf_counter() - t0
+        launches = (clahe.HIST_LAUNCHES, clahe.APPLY_LAUNCHES)
+    finally:
+        script.VioRunner.track = plain_track
+    if launches != (n_track[0], n_track[0]) or n_track[0] != len(frames):
+        raise AssertionError(f"euroc: K3/K4 launched {launches} for {n_track[0]} frames "
+                             f"({len(frames)} written)")
+    first = min(t for t, _, _ in events)  # the rebased stamps start here
+    shifted = ShiftedTrajectory(traj, first)
+    live = host_bool(runner.vio.initialized) and len(runner.trajectory) >= 3
+    fails, fc = host_int(runner.vio.failure_count), host_int(runner.vio.frame_count)
+    ate = vio_summary(runner.trajectory, shifted)[0] if live else None
+    status = vio_status(live, fails, fc, ate)
+    rows = None
+    if runner.trajectory:
+        rows = np.loadtxt(tum_path, ndmin=2)
+        ts = np.array([x[0] for x in runner.trajectory])
+        pos = np.stack([x[1] for x in runner.trajectory])
+        quat = np.stack([x[2] for x in runner.trajectory])
+        mine = np.column_stack([ts, pos, quat[:, 1:4], quat[:, 0]])
+        if not (np.isfinite(rows).all() and (np.diff(rows[:, 0]) > 0).all()
+                and rows.shape == mine.shape and np.abs(rows - mine).max() <= 5e-7):
+            raise AssertionError("euroc: the TUM rows are not the runner's trajectory")
+    ref = anchors.EUROC_VIO
+    log("euroc", frames=n_img, image="480x752", frames_sha256=got.hexdigest()[:16],
+        write_s=round(write_s, 2), png_decode_ms_per_frame=round(decode_ms, 2),
+        wall_s=round(wall, 2), rtf=round(5.0 / wall, 4), launches_K3=launches[0],
+        launches_K4=launches[1], status=status, failure_count=fails, frame_count=fc,
+        trajectory_points=len(runner.trajectory), tum_rows=0 if rows is None else len(rows),
+        ate_m=None if ate is None else round(ate, 5),
+        vio_full_entry0_status=entry0["status"], vio_full_entry0_ate_m=entry0["ate_m"],
+        jax_status=ref["status"], jax_ate_m=ref["ate_m"], jax_frames_sha256=ref["frames_sha256"])
+    if status == "misinitialized":
+        raise AssertionError(f"euroc: a misinitialized run (ATE {ate:.3f} m, unflagged)")
+    return {"K3": launches[0], "K4": launches[1]}
+
+
+def synthetic_phase(dev):
+    """Phase 21: the port's `run_synthetic_lvi` at its default 6 s with
+    `--save-map`, `--checkpoint` and `--html`. Gates: VIO initialized with
+    no failure; ATE within LVI_BAND of the worst JAX CPU reading of the
+    same run (`anchors.SYNTHETIC_LVI`: its own and with one input a float32
+    step off); the PCD, PPM and HTML files written; the checkpoint reloads
+    through `load_state` to an equal state."""
+    import torch
+
+    from lvislam_tpu_torch.core.hostsync import host_bool, host_int
+    from lvislam_tpu_torch.ops import clahe
+    from lvislam_tpu_torch.ops import gn_partials as gnp
+    from lvislam_tpu_torch.ops import knn_tail as kt
+    from lvislam_tpu_torch.scripts import run_synthetic_lvi as script
+    from lvislam_tpu_torch.utils import anchors, checkpoint
+
+    ref = anchors.SYNTHETIC_LVI
+    out = os.path.join(ROOT, ".chip_tmp", "synthetic")
+    os.makedirs(out, exist_ok=True)
+    paths = {"map": os.path.join(out, "map"), "ckpt": os.path.join(out, "lio_state.pt"),
+             "html": os.path.join(out, "viewer.html")}
+    kt.LAUNCHES = gnp.LAUNCHES = clahe.HIST_LAUNCHES = clahe.APPLY_LAUNCHES = 0
+    t0 = time.perf_counter()
+    r = script.main([str(SYNTHETIC_S), "--save-map", paths["map"], "--checkpoint",
+                     paths["ckpt"], "--html", paths["html"], "--device", str(dev)])
+    drain(dev)
+    call_s = time.perf_counter() - t0
+    launches = {"K1": kt.LAUNCHES, "K2": gnp.LAUNCHES, "K3": clahe.HIST_LAUNCHES,
+                "K4": clahe.APPLY_LAUNCHES}
+    sys_ = r["system"]
+    cfg_sha = anchors.config_sha256(sys_.cfg)
+    init, fails = host_bool(sys_.vio.initialized), host_int(sys_.vio.failure_count)
+    limit = LVI_BAND * max(ref["ate_m"], *ref["ate_one_ulp_m"].values())
+    files = {name: os.path.getsize(os.path.join(paths["map"], name))
+             for name in ("GlobalMap.pcd", "GlobalMap_topdown.ppm", "viewer.html")
+             if os.path.exists(os.path.join(paths["map"], name))}
+    back = checkpoint.load_state(paths["ckpt"], sys_.lio.state, device=dev)
+    same = all(torch.equal(a, b) for a, b in zip(checkpoint._flatten(back).values(),
+                                                 checkpoint._flatten(sys_.lio.state).values()))
+    log("synthetic", seconds=SYNTHETIC_S, call_s=round(call_s, 2), run_s=round(r["wall_s"], 2),
+        rtf=round(SYNTHETIC_S / r["wall_s"], 4), ate_m=round(r["ate_m"], 5),
+        ate_limit_m=round(limit, 5), jax_ate_m=round(ref["ate_m"], 5),
+        config_sha256=cfg_sha, jax_config_sha256=ref["config_sha256"],
+        vio_initialized=init, failure_count=fails, poses=len(sys_.trajectory),
+        jax_poses=ref["trajectory_points"], keyframes=host_int(sys_.lio.state.kf_count),
+        map=r["map"], files=files, html_bytes=os.path.getsize(paths["html"]),
+        checkpoint_reloads_equal=same, launches=launches)
+    if cfg_sha != ref["config_sha256"]:
+        raise AssertionError("synthetic: the script's configuration is not the anchor's")
+    if not (init and fails == 0):
+        raise AssertionError(f"synthetic: VIO initialized {init}, failures {fails}")
+    if not r["ate_m"] <= limit:
+        raise AssertionError(f"synthetic: ATE {r['ate_m']:.4f} m over {limit:.4f} m")
+    if len(files) != 3 or min(files.values()) == 0 or not os.path.getsize(paths["html"]):
+        raise AssertionError(f"synthetic: map files missing: {files}")
+    if not same:
+        raise AssertionError("synthetic: the checkpoint does not reload to the same state")
+    return launches
 
 
 def main() -> int:
@@ -2334,26 +2766,27 @@ def main() -> int:
     torch.use_deterministic_algorithms(True)
     dev = torch.device("cuda", 0)
     pool = stream_pool()
-    bag_pool = bag_worker_pool()
+    phases = phase_pool()
     try:
-        return run_phases(pool, bag_pool, dev)
+        return run_phases(pool, phases, dev)
     finally:
         pool.shutdown(wait=True, cancel_futures=True)
-        bag_pool.shutdown(wait=True, cancel_futures=True)
+        phases.shutdown(wait=True, cancel_futures=True)
 
 
-def bag_worker_pool():
-    """Two spawned processes for phases 16 and 17, which replay their bags
-    on the card while the main process runs phases 14 and 15: every phase is
-    host-bound and the card is mostly idle, so the script's time stays
-    under its limit on a slow host."""
+def phase_pool():
+    """Five spawned processes (`phase_worker_init`) for phases 15, 16, 17,
+    20 and 21, which run on the card while the main process runs 18, 19 and
+    14: every phase is host-bound and the card is mostly idle, so the
+    script's time stays under its limit on a slow host."""
     import multiprocessing
     from concurrent.futures import ProcessPoolExecutor
 
-    return ProcessPoolExecutor(2, mp_context=multiprocessing.get_context("spawn"))
+    return ProcessPoolExecutor(5, mp_context=multiprocessing.get_context("spawn"),
+                               initializer=phase_worker_init, initargs=(T_START,))
 
 
-def run_phases(pool, bag_pool, dev) -> int:
+def run_phases(pool, phases, dev) -> int:
     import numpy as np
     import torch
 
@@ -2527,8 +2960,8 @@ def run_phases(pool, bag_pool, dev) -> int:
         wait_seconds=round(streams["vio_full"].waited_s, 1))
     k34_vio = check_clahe_kernels({"euroc": (stream[4][0], "general")}, dev)["euroc"]
     clahe_alone(stream[4][0], dev, alone_reporter(alone), sweep=False, tag="_480x752")
-    vio_k3, vio_k4 = check_vio("vio_full", vio_config(True), stream, anchors.VIO_FULL_WIDTH,
-                               dev, n_prof)
+    (vio_k3, vio_k4), vio_full_outcomes = check_vio(
+        "vio_full", vio_config(True), stream, anchors.VIO_FULL_WIDTH, dev, n_prof)
     by_path = {"K1": {"lio_replay": launches["K1"]}, "K2": {"lio_replay": launches["K2"]},
                "K3": {"tracker": launches["K3"], "vio_full": vio_k3},
                "K4": {"tracker": launches["K4"], "vio_full": vio_k4}}
@@ -2540,18 +2973,29 @@ def run_phases(pool, bag_pool, dev) -> int:
     # ---- 13. the visual loop detector alone ----
     loop_ms = loop_scene_phase(syn.loop_scene(), dev)
 
-    # ---- 16, 17: the bag-replay entry point, each in a process of its own,
-    # on the card beside phases 14 and 15 ----
-    shipped_inputs = write_shipped_inputs(streams["full"].get())
-    bag_jobs = [bag_pool.submit(bag_worker, "fixture", T_START),
-                bag_pool.submit(bag_worker, "shipped", T_START, shipped_inputs)]
+    # ---- 15, 16, 17, 20, 21: config 5 at the shipped scale and the
+    # bag-replay, EuRoC and synthetic entry points, each in a process of its
+    # own, on the card beside phase 14 ----
+    full_data = streams["full"].get()
+    log("lvi_full_stream", wait_seconds=round(streams["full"].waited_s, 1))
+    shipped_inputs = write_shipped_inputs(full_data)
+    jobs = [phases.submit(lvi_full_phase, full_data, dev),
+            phases.submit(bag_fixture_phase, dev),
+            phases.submit(bag_shipped_phase, shipped_inputs, dev),
+            phases.submit(euroc_phase, stream[1:], dev, vio_full_outcomes[0]),
+            phases.submit(synthetic_phase, dev)]
+
+    # ---- 18. the host tools: native library, PNG codec, exact LOAM pick ----
+    host_tools_phase(stream[4][0], scans, dev)
+
+    # ---- 19. the calibration tool on the card ----
+    calibration_phase(dev)
 
     # ---- 14. config 5 at the parity scale ----
     par = lvi_parity_phase(streams["parity"], dev)
 
-    # ---- 15. config 5 at the shipped scale ----
-    full, full_gated, full_rows = lvi_full_phase(streams["full"], dev)
-    (_, bag_fix), (_, bag_ship, ship_rows) = [job.result() for job in bag_jobs]
+    (full, full_gated, full_rows), (_, bag_fix), (_, bag_ship, ship_rows), euroc_k, \
+        synthetic_k = [job.result() for job in jobs]
     compare_with_full(ship_rows, full_rows)
     if "--loop" in sys.argv:
         lvi_loop_phase(streams["loop"], dev)
@@ -2562,6 +3006,9 @@ def run_phases(pool, bag_pool, dev) -> int:
             by_path[key]["lvi_full_rebuild1"] = full_gated["launches"][key]
         by_path[key]["bag_fixture"] = bag_fix[key]
         by_path[key]["bag_shipped"] = bag_ship[key]
+        by_path[key]["synthetic_entry"] = synthetic_k[key]
+        if key in euroc_k:
+            by_path[key]["euroc_entry"] = euroc_k[key]
     launches = {k: sum(v.values()) for k, v in by_path.items()}
 
     def timing(key):

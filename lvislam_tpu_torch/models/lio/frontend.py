@@ -87,13 +87,13 @@ def extract_features(
     max_surf: int = 8192,
     exact_selection: bool = False,
 ) -> FeatureResult:
-    """LOAM feature selection with the vectorized edge pick."""
-    if exact_selection:
-        raise NotImplementedError(
-            "the exact greedy select_edges is not ported yet")
+    """LOAM feature selection: the vectorized edge pick, or with
+    `exact_selection` the reference's sequential greedy pick
+    (`loam.select_edges`, 240 rounds)."""
     curv = loam.curvature(proj.point_range, proj.valid)
     occl = loam.occlusion_mask(proj.point_range, proj.point_col, proj.valid)
-    edges = loam.select_edges_fast(
+    select = loam.select_edges if exact_selection else loam.select_edges_fast
+    edges = select(
         curv, proj.point_col, occl, proj.valid,
         proj.start_ring_index, proj.end_ring_index, edge_threshold,
     )

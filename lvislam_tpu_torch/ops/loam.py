@@ -1,8 +1,8 @@
 """LOAM feature extraction — port of ``lvislam_tpu.ops.loam``: the 5-point
 curvature, the occlusion / parallel-beam mask, the sector bounds, the
 vectorized edge selection (window non-max suppression + per-sector top-k)
-and the surface candidates. The exact greedy ``select_edges`` (behind
-``exact_loam_selection``) is not ported yet.
+the exact greedy ``select_edges`` (behind ``exact_loam_selection``) and
+the surface candidates.
 """
 
 from __future__ import annotations
@@ -48,6 +48,78 @@ def sector_bounds(start_idx: torch.Tensor, end_idx: torch.Tensor,
         n_sectors, rounding_mode="floor",
     ) - 1
     return sp, ep
+
+
+def _reach_masks(col_ind: torch.Tensor):
+    """(5, P) forward and backward masks: i reaches i+l (i-l) without a
+    column gap > 10 on the way."""
+    P = col_ind.shape[0]
+    col_gap_fwd = torch.abs(torch.roll(col_ind, -1) - col_ind) > 10
+    ok_f = torch.ones(P, dtype=torch.bool, device=col_ind.device)
+    ok_b = torch.ones(P, dtype=torch.bool, device=col_ind.device)
+    fwd, bwd = [], []
+    for l in range(1, 6):
+        ok_f = ok_f & (~torch.roll(col_gap_fwd, -(l - 1)))
+        fwd.append(ok_f)
+        ok_b = ok_b & (~torch.roll(col_gap_fwd, l))
+        bwd.append(ok_b)
+    return fwd, bwd
+
+
+def select_edges(
+    curv: torch.Tensor,  # (P,)
+    col_ind: torch.Tensor,  # (P,)
+    suppressed: torch.Tensor,  # (P,) occlusion mask (True = not eligible)
+    valid: torch.Tensor,  # (P,)
+    start_idx: torch.Tensor,  # (R,)
+    end_idx: torch.Tensor,  # (R,)
+    edge_threshold: float,
+    max_edges_per_sector: int = 40,
+    n_sectors: int = 6,
+):
+    """Greedy per-sector edge pick with ±5 neighbour suppression
+    (`featureExtraction.cpp:150-245`), the JAX ``select_edges``: sectors in
+    turn (suppression from sector j reaches into sector j+1), and in each
+    `max_edges_per_sector` rounds of one masked argmax per ring, all rings
+    at once. Ties go to the highest index, as the JAX function breaks them
+    (the reference iterates each sector's sort from its end). Integer and
+    comparison work only, so the mask is exact. Returns the (P,) bool mask
+    of edge points."""
+    P = curv.shape[0]
+    R = start_idx.shape[0]
+    dev = curv.device
+    sp, ep = sector_bounds(start_idx, end_idx, n_sectors)
+    idx = torch.arange(P, device=dev)
+    eligible = valid & (~suppressed) & (curv > edge_threshold)
+    fwd, bwd = _reach_masks(col_ind)
+    neg_inf = torch.full_like(curv, -float("inf"))
+    picked = torch.zeros(P, dtype=torch.bool, device=dev)
+    for j in range(n_sectors):
+        in_sec = (idx[None, :] >= sp[:, j, None]) & (idx[None, :] <= ep[:, j, None])
+        lane_of_point = torch.argmax(in_sec.to(torch.uint8), dim=0)  # first ring
+        has_lane = torch.any(in_sec, dim=0)
+        lane = torch.where(has_lane, lane_of_point, torch.zeros_like(lane_of_point))
+        for _ in range(max_edges_per_sector):
+            score = torch.where(eligible & has_lane, curv, neg_inf)
+            lane_score = torch.full((R,), -float("inf"), dtype=curv.dtype, device=dev)
+            lane_score = lane_score.scatter_reduce(0, lane, torch.where(has_lane, score, neg_inf),
+                                                   "amax")
+            is_max = (has_lane & eligible & (score == lane_score[lane_of_point])
+                      & (score > -float("inf")))
+            win_idx = torch.full((R,), -1, dtype=idx.dtype, device=dev).scatter_reduce(
+                0, torch.where(is_max, lane_of_point, torch.zeros_like(lane_of_point)),
+                torch.where(is_max, idx, torch.full_like(idx, -1)), "amax")
+            safe = torch.where(win_idx >= 0, win_idx, torch.full_like(win_idx, P))
+            win = torch.zeros(P + 1, dtype=torch.bool, device=dev)
+            win[safe] = True
+            win = win[:P] & is_max
+            picked = picked | win
+            supp = win
+            for l in range(1, 6):
+                supp = supp | torch.roll(win & fwd[l - 1], l)
+                supp = supp | torch.roll(win & bwd[l - 1], -l)
+            eligible = eligible & (~supp)
+    return picked
 
 
 def select_edges_fast(

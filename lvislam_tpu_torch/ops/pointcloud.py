@@ -1,7 +1,8 @@
 """Point-cloud ops — port of ``lvislam_tpu.ops.pointcloud``: Livox ring
-columns, rotational deskew, ring compaction, the fused projection +
-compaction, PCL-VoxelGrid downsampling (sort path and dense path) and the
-rigid cloud transform.
+columns and spherical (azimuth) columns, the range-image projection,
+rotational deskew, ring compaction and its gather, the fused projection +
+compaction, PCL-VoxelGrid downsampling (sort path and dense path), the ego
+filter and the rigid cloud transform.
 
 Determinism: every sort is stable (``jnp.argsort``/``jnp.lexsort`` are), the
 voxel centroid sums are fixed-order segment sums (``ops.segment``), and the
@@ -9,6 +10,8 @@ scatters write unique indices or integers only.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -27,6 +30,59 @@ def livox_columns(ring: torch.Tensor, valid: torch.Tensor, n_scan: int):
     counts = torch.cumsum(one_hot, dim=-1, dtype=torch.int32) - one_hot
     sel = torch.clamp(ring, 0, n_scan - 1).long()
     return torch.gather(counts, 0, sel[None, :])[0]
+
+
+def spherical_columns(xyz: torch.Tensor, horizon_scan: int) -> torch.Tensor:
+    """Velodyne/Ouster column from azimuth (`imageProjection.cpp:597-603`);
+    round half to even, as ``jnp.round``."""
+    horizon_angle = torch.atan2(xyz[:, 0], xyz[:, 1]) * (180.0 / math.pi)
+    ang_res = 360.0 / horizon_scan
+    col = -torch.round((horizon_angle - 90.0) / ang_res).to(torch.int32) + horizon_scan // 2
+    return torch.where(col >= horizon_scan, col - horizon_scan, col)
+
+
+def project_to_range_image(
+    xyz: torch.Tensor,  # (P, 3)
+    intensity: torch.Tensor,  # (P,)
+    ring: torch.Tensor,  # (P,) int32
+    valid: torch.Tensor,  # (P,) bool
+    n_scan: int,
+    horizon_scan: int,
+    min_range: float,
+    max_range: float,
+    columns: torch.Tensor | None = None,
+    downsample_rate: int = 1,
+):
+    """Range-image projection with first-point-wins dedup
+    (`imageProjection.cpp:570-622`). Returns (range_img (N,H), xyz_img
+    (N,H,3), intensity_img (N,H), valid_img (N,H), time_idx_img (N,H): the
+    winning point's index, -1 where empty). Empty cells have range inf."""
+    P = xyz.shape[0]
+    dev = xyz.device
+    rng = lie.norm3(xyz)
+    ok = valid & (rng >= min_range) & (rng <= max_range)
+    ok &= (ring >= 0) & (ring < n_scan)
+    if downsample_rate > 1:
+        ok &= (ring % downsample_rate) == 0
+    if columns is None:
+        columns = livox_columns(ring, ok, n_scan)
+    ok &= (columns >= 0) & (columns < horizon_scan)
+    trash = n_scan * horizon_scan
+    flat = torch.where(ok, ring * horizon_scan + columns, torch.full_like(ring, trash)).long()
+    # first wins: scatter-min of the point index a cell (integers: order-free)
+    winner = torch.full((trash + 1,), P, dtype=torch.int32, device=dev).scatter_reduce(
+        0, flat, torch.arange(P, dtype=torch.int32, device=dev), reduce="amin")[:-1]
+    cell_valid = winner < P
+    widx = torch.where(cell_valid, winner, torch.zeros_like(winner)).long()
+    range_img = torch.where(cell_valid, rng[widx], torch.full_like(rng[widx], float("inf")))
+    xyz_img = torch.where(cell_valid[:, None], xyz[widx], torch.zeros_like(xyz[widx]))
+    inten_img = torch.where(cell_valid, intensity[widx], torch.zeros_like(intensity[widx]))
+    time_idx = torch.where(cell_valid, widx, torch.full_like(widx, -1)).to(torch.int32)
+    return (range_img.reshape(n_scan, horizon_scan),
+            xyz_img.reshape(n_scan, horizon_scan, 3),
+            inten_img.reshape(n_scan, horizon_scan),
+            cell_valid.reshape(n_scan, horizon_scan),
+            time_idx.reshape(n_scan, horizon_scan))
 
 
 def deskew_points(
@@ -159,6 +215,19 @@ def project_compact(
     )
 
 
+def gather_compacted(order: torch.Tensor, counts: torch.Tensor, img: torch.Tensor):
+    """Apply the compaction order to a (N, H, ...) image and flatten it to
+    (N*H, ...) with its validity mask."""
+    n_scan, h = order.shape
+    flat = torch.gather(img.reshape(n_scan, h, -1), 1,
+                        order.long()[..., None].expand(n_scan, h, img.reshape(n_scan, h, -1).shape[-1]))
+    valid = torch.arange(h, device=order.device)[None, :] < counts[:, None]
+    out = flat.reshape(n_scan * h, -1)
+    if img.dim() == 2:
+        out = out[:, 0]
+    return out, valid.reshape(-1)
+
+
 def _voxel_keys(xyz: torch.Tensor, valid: torch.Tensor, leaf: float):
     """Quantized voxel coordinates packed into one int32 key; invalid points
     get the sentinel key 2^31-1 (sorts last)."""
@@ -257,6 +326,11 @@ def _voxel_downsample_dense(xyz, valid, leaf: float, capacity: int,
     out_xyz = torch.where(out_valid[:, None], out[:, :3], torch.zeros_like(out[:, :3]))
     out_int = torch.where(out_valid, out[:, 3], torch.zeros_like(out[:, 3]))
     return out_xyz, out_valid, out_int
+
+
+def remove_ego_points(xyz: torch.Tensor, valid: torch.Tensor, min_range: float) -> torch.Tensor:
+    """Drop points closer than min_range (ego returns)."""
+    return valid & (lie.norm3(xyz) >= min_range)
 
 
 def transform_cloud(t: torch.Tensor, q: torch.Tensor, xyz: torch.Tensor):

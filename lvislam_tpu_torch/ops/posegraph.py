@@ -235,3 +235,58 @@ def total_error(g: PoseGraph) -> torch.Tensor:
     lin = _linearize(g)
     return (torch.sum(lin.bf_r ** 2) + torch.sum(lin.up_r ** 2)
             + torch.sum(lin.pr_r ** 2))
+
+
+def dense_information(g: PoseGraph):
+    """EXACT dense Gauss-Newton information matrix H = J^T J (6K, 6K) over
+    all factor blocks (prior + between + unary), per-node layout
+    [rot(3), trans(3)]: the normal-equations matrix whose inverse block is
+    the reference's `isam->marginalCovariance(key)`
+    (`mapOptimization.cpp:1437-1445`). Validation-scale only (O(F·(6K)^2)
+    build, O((6K)^3) inverse): the product path gates GPS on the first-order
+    proxy (`mapping._add_keyframe` `pose_cov_xy`), which this checks.
+    Returned as float64 numpy on the host, as the JAX function returns it
+    (the prior's 1e8 free-position variance makes the inverse ill-conditioned
+    in float32). Invalid (unused) node slots are pinned with a unit prior so
+    H stays invertible."""
+    import numpy as np
+
+    lin = _linearize(g)
+    K = g.trans.shape[0]
+    D = 6 * K
+    H = np.zeros((D, D))
+
+    bf_J = lin.bf_J.detach().cpu().numpy().astype(np.float64)
+    bf_i = g.bf_i.cpu().numpy()
+    bf_j = g.bf_j.cpu().numpy()
+    for f in range(bf_J.shape[0]):
+        i, j = int(bf_i[f]), int(bf_j[f])
+        Jf = np.zeros((6, D))
+        Jf[:, 6 * i:6 * i + 6] += bf_J[f, :, 0:6]
+        Jf[:, 6 * j:6 * j + 6] += bf_J[f, :, 6:12]
+        H += Jf.T @ Jf
+    up_J = lin.up_J.detach().cpu().numpy().astype(np.float64)
+    up_k = g.up_k.cpu().numpy()
+    for u in range(up_J.shape[0]):
+        k = int(up_k[u])
+        Ju = np.zeros((3, D))
+        Ju[:, 6 * k:6 * k + 6] = up_J[u]
+        H += Ju.T @ Ju
+    J0 = np.zeros((6, D))
+    J0[:, 0:6] = lin.pr_J.detach().cpu().numpy().astype(np.float64)
+    H += J0.T @ J0
+    pin = np.repeat(~g.node_valid.cpu().numpy(), 6).astype(np.float64)
+    H += np.diag(pin)
+    return H
+
+
+def dense_marginal_covariance(g: PoseGraph, node: int):
+    """Exact (6, 6) marginal covariance of `node` (float64 numpy) — the
+    dense-inverse equivalent of the reference's marginalCovariance gate read
+    (`mapOptimization.cpp:1437-1445`: entries (3,3)/(4,4) are the x/y
+    position variances, layout [rot(3), trans(3)]). Validation-scale only;
+    see `dense_information`."""
+    import numpy as np
+
+    cov = np.linalg.inv(dense_information(g))
+    return cov[6 * node:6 * node + 6, 6 * node:6 * node + 6]

@@ -1,6 +1,7 @@
 """Scan-to-map LOAM registration — port of ``lvislam_tpu.ops.scan2map``:
 Gauss-Newton over the pose [roll, pitch, yaw, tx, ty, tz] with point-to-line
-(corner) and point-to-plane (surf) costs against the voxel-hash gated 5-NN.
+(corner) and point-to-plane (surf) costs against the voxel-hash gated 5-NN
+(``scan_to_map_hashed``) or the brute-force exact 5-NN (``scan_to_map``).
 
 The JAX ``lax.while_loop`` becomes a host-synced Python loop: one
 device-to-host read of the convergence flag per iteration
@@ -79,6 +80,23 @@ def _masked(ok, s, n, off):
         offset=torch.where(ok, off, zero),
         valid=ok,
     )
+
+
+def corner_coeffs(pts_world, pts_valid, map_pts, nn_idx, nn_sqdist) -> Coeffs:
+    """Point-to-line coefficients against `map_pts` rows `nn_idx` (N, 5)
+    (`mapOptimization.cpp:1025-1096`); distances are recomputed exactly from
+    the gathered neighbours, nn_idx < 0 marks a missing one."""
+    has = nn_idx >= 0
+    return corner_coeffs_nbrs(pts_world, pts_valid,
+                              map_pts[torch.clamp(nn_idx, min=0).long()], has)
+
+
+def surf_coeffs(pts_world, pts_lidar, pts_valid, map_pts, nn_idx, nn_sqdist) -> Coeffs:
+    """Point-to-plane coefficients against `map_pts` rows `nn_idx`
+    (`mapOptimization.cpp:1098-1167`), as `corner_coeffs`."""
+    has = nn_idx >= 0
+    return surf_coeffs_nbrs(pts_world, pts_lidar, pts_valid,
+                            map_pts[torch.clamp(nn_idx, min=0).long()], has)
 
 
 def corner_coeffs_nbrs(pts_world, pts_valid, nbrs, has) -> Coeffs:
@@ -275,6 +293,51 @@ def scan_to_map_hashed(
             new_x, conv, proj, degen, n_res = gn_update(
                 st.x6, pts_all, coeffs, it == 0, st.proj, st.degenerate,
                 eigen_thresh=eigen_thresh)
+        st = GNState(x6=new_x, it=st.it + 1, converged=conv, degenerate=degen,
+                     proj=proj, num_residuals=n_res.to(torch.int32))
+        if hostsync.host_bool(conv):
+            break
+    return st
+
+
+def scan_to_map(
+    x6_init: torch.Tensor,  # (6,) initial guess [r, p, y, tx, ty, tz]
+    corner_pts: torch.Tensor,  # (C, 3) scan edge features (lidar frame)
+    corner_valid: torch.Tensor,
+    surf_pts: torch.Tensor,  # (S, 3)
+    surf_valid: torch.Tensor,
+    map_corner: torch.Tensor,  # (Mc, 3)
+    map_corner_valid: torch.Tensor,
+    map_surf: torch.Tensor,  # (Ms, 3)
+    map_surf_valid: torch.Tensor,
+    max_iters: int = 20,
+    eigen_thresh: float = 100.0,
+) -> GNState:
+    """Full scan-to-map optimization with the brute-force exact 5-NN
+    (`scan2MapOptimization`, `mapOptimization.cpp:1315-1343`): iterate the
+    correspondence search and a weighted GN step until converged or
+    `max_iters`, one host read of the convergence flag an iteration."""
+    dev, dt = x6_init.device, x6_init.dtype
+    st = GNState(
+        x6=x6_init, it=torch.zeros((), dtype=torch.int32, device=dev),
+        converged=torch.zeros((), dtype=torch.bool, device=dev),
+        degenerate=torch.zeros((), dtype=torch.bool, device=dev),
+        proj=torch.eye(6, dtype=dt, device=dev),
+        num_residuals=torch.zeros((), dtype=torch.int32, device=dev),
+    )
+    pts = torch.cat([corner_pts, surf_pts])
+    for it in range(max_iters):
+        Rm = lie.x6_rotation(st.x6)
+        t = st.x6[3:6]
+        cw = corner_pts @ Rm.T + t
+        sw = surf_pts @ Rm.T + t
+        ci, cd = knn(cw, corner_valid, map_corner, map_corner_valid, 5)
+        si, sd = knn(sw, surf_valid, map_surf, map_surf_valid, 5)
+        cc = corner_coeffs(cw, corner_valid, map_corner, ci, cd)
+        sc = surf_coeffs(sw, surf_pts, surf_valid, map_surf, si, sd)
+        coeffs = Coeffs(*(torch.cat([a, b]) for a, b in zip(cc, sc)))
+        new_x, conv, proj, degen, n_res = gn_update(
+            st.x6, pts, coeffs, it == 0, st.proj, st.degenerate, eigen_thresh=eigen_thresh)
         st = GNState(x6=new_x, it=st.it + 1, converged=conv, degenerate=degen,
                      proj=proj, num_residuals=n_res.to(torch.int32))
         if hostsync.host_bool(conv):

@@ -17,7 +17,13 @@ asserts that it equals the stored value (``-s`` prints them):
 - ``LOOP_SCENE`` (phase 13): ``tests/test_torch_loop_detector.py`` (not
   slow: it runs the JAX scene anyway);
 - ``LVI_PARITY`` (phase 14): ``tests/test_torch_lvi_system.py -m slow -k
-  anchor -s``.
+  anchor -s``;
+- ``ROSBAG_FIXTURE`` (phase 16): ``tests/test_torch_rosbag_entry.py -m slow
+  -k anchor -s``;
+- ``EUROC_VIO`` (phase 20): ``tests/test_torch_euroc_entry.py -m slow -k
+  anchor -s``;
+- ``SYNTHETIC_LVI`` (phase 21): ``tests/test_torch_synthetic_entry.py -m
+  slow -k anchor -s``.
 
 ``config_sha256`` hashes a configuration so a stored value names the
 configuration that made it.
@@ -347,6 +353,42 @@ ROSBAG_FIXTURE = {'messages': {'imu': 1200, 'livox': 59, 'image': 59},
                               0.6100593209266663, -0.0013696008827537298, 0.0007690397906117141],
                              [0.8450000000000001, 0.00427257502451539, 0.0490410290658474, -0.025557726621627808,
                               0.8127585053443909, -0.0021865300368517637, -0.010929427109658718]]}
+
+
+# `scripts/run_synthetic_lvi.py` (JAX, CPU) at its default 6 s: the
+# configuration's `config_sha256` (`tests/test_lvi_system.py:make_system`,
+# which the port's `run_synthetic_lvi.system_config` copies), the ATE (m)
+# as the script computes it (rigid alignment of the poses against the
+# figure-8 3 m / 30 s), the same with one input a float32 step off
+# (`ate_one_ulp_m`: the IMU's gyro or accelerometer up, every scan point up
+# or down; the JAX run's own spread, which phase 21's gate spans), the
+# poses, the keyframes and the VIO's outcome. Recomputed by
+# ``tests/test_torch_synthetic_entry.py::test_jax_synthetic_anchor`` (slow).
+SYNTHETIC_LVI = {'duration_s': 6.0,
+                 'config_sha256': '1fee3f8f0f68ca6e',
+                 'ate_m': 0.050668380740000546,
+                 'ate_one_ulp_m': {'gyro_up': 0.04216876458827089,
+                                   'acc_up': 0.047517022151874,
+                                   'xyz_up': 0.0441301950486538,
+                                   'xyz_down': 0.039425314631823215},
+                 'trajectory_points': 59,
+                 'keyframes': 21,
+                 'vio_initialized': True,
+                 'failure_count': 0}
+
+# `scripts/run_euroc_vio.py` (JAX, CPU, PIL) over `chip_smoke.py` phase
+# 20's folder (`chip_smoke.write_euroc_inputs` of phase 11's 5 s stream at
+# 752x480 with its camera YAML): the decoded frames' sha256 (16 hex
+# digits), the outcome in `chip_smoke.vio_status`'s terms and the ATE (m,
+# None when not live), the poses, failures and the window fill at the end.
+# Recomputed by ``tests/test_torch_euroc_entry.py::test_jax_euroc_anchor``
+# (slow).
+EUROC_VIO = {'frames_sha256': 'a6111fd32bd5bd5c',
+             'status': 'rebooted',
+             'ate_m': None,
+             'trajectory_points': 0,
+             'failure_count': 1,
+             'frame_count': 10}
 
 
 def config_fields(cfg) -> dict:

@@ -15,13 +15,13 @@ The reference consumes live DDS topics or `ros2 bag play` (docs/quick-start
 Both yield (stamp_seconds, topic, kind, payload-dict) in time order — ready
 for `LviSystem.feed_*` / the bus. The parsers are host code (numpy on the
 message bytes), as in the JAX package; tensors start where `LviSystem`
-takes the messages. What differs from the JAX module: a JPEG
-`CompressedImage` is decoded by the port's own decoder (`utils/jpeg.py`,
-bit-equal to PIL's on grayscale frames), so a JPEG or raw-image bag needs no
-PIL; PNG (a PNG `CompressedImage`, EuRoC's frames) still goes through PIL,
-imported where it is needed, and raises ``ImportError`` without it.
-`pointcloud2_to_scan` takes the JAX module's generic strided path for every
-layout (the native C decoder, `utils/native.py`, is not ported).
+takes the messages. What differs from the JAX module: images are decoded by
+the port's own codecs instead of PIL — a JPEG `CompressedImage` by
+`utils/jpeg.py` (bit-equal to PIL's on grayscale frames), a PNG one and
+EuRoC's cam0 frames by `utils/png.py` (bit-equal to PIL's ``convert("L")``)
+— so no bag or EuRoC folder needs PIL. `pointcloud2_to_scan` takes the
+native C decoder (`utils/native.py`) for the common all-float layout, as
+the JAX module does, and the generic strided numpy path otherwise.
 """
 
 from __future__ import annotations
@@ -33,7 +33,7 @@ from typing import Iterator
 
 import numpy as np
 
-from . import jpeg
+from . import jpeg, png
 
 
 # ---------------------------------------------------------------------------
@@ -167,8 +167,10 @@ def parse_compressed_image(buf: bytes):
     `utils/jpeg.decode_gray`: a truncated or corrupt one raises
     ``ValueError`` (the reader counts it skipped, as JAX counts PIL's
     ``OSError``); a progressive or arithmetic-coded one raises
-    ``NotImplementedError``. Any other blob (PNG) goes through PIL, imported
-    here: ``ImportError`` where PIL is missing."""
+    ``NotImplementedError``. Any other blob is decoded as a PNG by
+    `utils/png.decode_gray` (a blob that is not a PNG, or a corrupt one,
+    raises ``ValueError``; an interlaced, 16-bit or palette PNG raises
+    ``NotImplementedError``, where PIL decodes them)."""
     c = Cdr(buf)
     stamp, _ = c.header()
     fmt = c.string()
@@ -176,11 +178,7 @@ def parse_compressed_image(buf: bytes):
     if data[:2] == b"\xff\xd8":
         img = jpeg.decode_gray(data)
     else:
-        import io
-
-        from PIL import Image as PILImage
-
-        img = np.asarray(PILImage.open(io.BytesIO(data)).convert("L"), np.uint8)
+        img = png.decode_gray(data)
     return dict(stamp=stamp, image=img.astype(np.float32) / 255.0,
                 format=fmt)
 
@@ -228,10 +226,16 @@ _PF_DTYPES = {1: np.int8, 2: np.uint8, 3: np.int16, 4: np.uint16,
 
 def pointcloud2_to_scan(msg: dict) -> dict:
     """PointCloud2 payload -> pipeline scan dict (xyz/intensity/ring/time),
-    non-finite points compacted out (the pcl::fromROSMsg counterpart,
-    `imageProjection.cpp:240-260`): the JAX module's generic strided numpy
-    path for every layout (f32 `time`, u32-nanosecond `t`, f64 absolute
-    `timestamp`; `ring` or `line`)."""
+    non-finite points compacted out.
+
+    The common all-float layout (x,y,z[,intensity f32][,ring u16|line u8]
+    [,time f32]) goes through the native C decoder (`utils/native.py`,
+    `native/src/lvislam_native.cpp::decode_pointcloud2` — the
+    pcl::fromROSMsg counterpart, `imageProjection.cpp:240-260`); anything
+    else takes the generic strided numpy path (u32-nanosecond `t`, f64
+    `timestamp`, ...), as in the JAX module."""
+    from . import native
+
     fields = msg["fields"]
     data = msg["data"]
     step = int(msg["point_step"])
@@ -251,6 +255,24 @@ def pointcloud2_to_scan(msg: dict) -> dict:
     if orr < 0:
         orr, drr = off_dt("line")
     ot, dtt = off_dt("time")
+
+    # aliases the native path cannot convert (u32 ns `t`, f64 `timestamp`)
+    # force the generic path below
+    has_alt_time = ot < 0 and (off_dt("t")[0] >= 0 or off_dt("timestamp")[0] >= 0)
+    fast = (
+        n > 0 and dx is np.float32 and dy is np.float32 and dz is np.float32
+        and (oi < 0 or di is np.float32)
+        and ((ot >= 0 and dtt is np.float32) or (ot < 0 and not has_alt_time))
+        and (orr < 0 or drr in (np.uint8, np.uint16))
+    )
+    if fast:
+        xyz, inten, ring, t, valid = native.decode_pointcloud2(
+            data, n, step,
+            {"x": ox, "y": oy, "z": oz, "intensity": oi, "ring": orr, "time": ot},
+            capacity=n, ring_is_uint8=drr is np.uint8,
+        )
+        w = int(valid.sum())
+        return dict(xyz=xyz[:w], intensity=inten[:w], ring=ring[:w], time=t[:w])
 
     rec = np.frombuffer(data, np.uint8)[: n * step].reshape(n, step)
 
@@ -370,9 +392,9 @@ class Rosbag2Reader:
             try:
                 msg = fn(data)
             except (struct.error, IndexError, ValueError, MemoryError,
-                    OSError):  # ValueError: a truncated or corrupt JPEG blob
-                # (utils/jpeg.py, where JAX's PIL raises OSError); OSError:
-                # PIL on a bad PNG blob
+                    OSError):  # ValueError: a truncated or corrupt JPEG or PNG
+                # blob (utils/jpeg.py, utils/png.py, where JAX's PIL raises
+                # OSError)
                 self.skipped += 1
                 continue
             yield ts * 1e-9, name, kind, msg
@@ -384,10 +406,10 @@ class Rosbag2Reader:
 
 def euroc_reader(root: str, max_items: int | None = None) -> Iterator[tuple]:
     """Yield (stamp, topic, 'imu'|'image', payload) from a EuRoC mav0 dir
-    (BASELINE configs 2/4: MH_01). The cam0 PNGs are decoded by PIL,
-    imported at the first frame: where PIL is missing this raises
-    ``ImportError`` (the JAX reader drops every frame there and yields the
-    IMU alone)."""
+    (BASELINE configs 2/4: MH_01). The cam0 PNGs are decoded by the port's
+    own `utils/png.py` into PIL's ``convert("L")`` bytes, / 255 in float32,
+    as the JAX reader returns them through PIL (which, where PIL is missing,
+    drops every frame and yields the IMU alone)."""
     events = []
     imu_csv = os.path.join(root, "imu0", "data.csv")
     if os.path.exists(imu_csv):
@@ -408,9 +430,7 @@ def euroc_reader(root: str, max_items: int | None = None) -> Iterator[tuple]:
         events = events[:max_items]
     for t, kind, payload in events:
         if kind == "image_path":
-            from PIL import Image as PILImage
-
-            img = np.asarray(PILImage.open(payload).convert("L"), np.float32) / 255.0
+            img = png.read_gray(payload).astype(np.float32) / 255.0
             yield t, kind.replace("_path", ""), "image", dict(image=img)
         else:
             yield t, "imu0", "imu", payload

@@ -7,6 +7,10 @@ pass; its bytes are the per-point writer's.
 
 Use: ``write_bag(path, topics, messages)`` with `topics` a list of (name,
 type) and `messages` (stamp ns, topic index, CDR bytes) in any order.
+
+``write_euroc`` writes an EuRoC ASL ``mav0`` folder instead (imu0 CSV with
+nanosecond stamps, cam0 CSV and 8-bit PNG frames by `utils/png.py`), in
+the layout and number format of ``tests/test_euroc_e2e.py``'s writer.
 """
 
 from __future__ import annotations
@@ -16,6 +20,7 @@ import struct
 
 import numpy as np
 
+from . import png
 from .bag import _LIVOX_POINT
 
 
@@ -147,3 +152,29 @@ def write_bag(path: str, topics, messages) -> int:
     finally:
         conn.close()
     return len(msgs)
+
+
+def write_euroc(root: str, t0_ns: int, imu_ts, gyro, acc, img_ts, frames_u8) -> list:
+    """An EuRoC ``mav0`` folder at `root`: ``imu0/data.csv`` (stamp ns =
+    t0_ns + round(t * 1e9), w_RS_S, a_RS_S as Python prints float64) and
+    ``cam0/data.csv`` with one PNG a frame named by its stamp. Returns the
+    frame stamps in ns."""
+    import os
+
+    os.makedirs(os.path.join(root, "imu0"), exist_ok=True)
+    os.makedirs(os.path.join(root, "cam0", "data"), exist_ok=True)
+    with open(os.path.join(root, "imu0", "data.csv"), "w") as f:
+        f.write("#timestamp [ns],w_RS_S_x,w_RS_S_y,w_RS_S_z,"
+                "a_RS_S_x,a_RS_S_y,a_RS_S_z\n")
+        for t, w, a in zip(imu_ts, gyro, acc):
+            ns = t0_ns + int(round(t * 1e9))
+            f.write(f"{ns},{w[0]},{w[1]},{w[2]},{a[0]},{a[1]},{a[2]}\n")
+    stamps = []
+    with open(os.path.join(root, "cam0", "data.csv"), "w") as f:
+        f.write("#timestamp [ns],filename\n")
+        for t, img in zip(img_ts, frames_u8):
+            ns = t0_ns + int(round(t * 1e9))
+            png.write(os.path.join(root, "cam0", "data", f"{ns}.png"), np.asarray(img, np.uint8))
+            f.write(f"{ns},{ns}.png\n")
+            stamps.append(ns)
+    return stamps

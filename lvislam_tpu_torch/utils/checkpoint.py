@@ -11,10 +11,9 @@ total:
   ``torch.load(weights_only=True)`` into the structure of a template
   (shape-checked), onto a given device;
 - `save_map_service`: the LIS keyframe map -> ASCII PCD files + TUM-format
-  trajectory, with optional voxel resolution, the same files and bytes as
-  the JAX package's. Its offline viewer artifacts (the top-down PPM and the
-  HTML viewer of `utils/debugviz.py`) are not written: that module is not
-  ported.
+  trajectory, with optional voxel resolution, and the offline viewer
+  artifacts (the top-down PPM and the HTML viewer of `utils/debugviz.py`):
+  the same files and bytes as the JAX package's.
 """
 
 from __future__ import annotations
@@ -149,8 +148,9 @@ def global_map_points(state, resolution: float = 0.0):
 def save_map_service(state, out_dir: str, resolution: float = 0.0):
     """`saveMapService` (`mapOptimization.cpp:179-238`): writes
     trajectory.pcd (keyframe positions), transformations (TUM), corner/surf
-    global maps (optionally re-downsampled at `resolution`) and their union
-    (GlobalMap.pcd)."""
+    global maps (optionally re-downsampled at `resolution`), their union
+    (GlobalMap.pcd), plus the offline visualization artifacts (top-down PPM
+    + interactive HTML)."""
     os.makedirs(out_dir, exist_ok=True)
     n = int(state.kf_count)
     kt = state.kf_trans[:n].cpu().numpy()
@@ -165,4 +165,12 @@ def save_map_service(state, out_dir: str, resolution: float = 0.0):
     if len(corner) + len(surf):
         gmap = np.concatenate([corner, surf]) if len(corner) else surf
         write_pcd(os.path.join(out_dir, "GlobalMap.pcd"), gmap)
+        # top-down render — the RViz global-map + path view
+        # (`visualizeGlobalMapThread`, `mapOptimization.cpp:421-510`)
+        from .debugviz import draw_map_topdown, export_html_viewer, save_ppm
+
+        save_ppm(os.path.join(out_dir, "GlobalMap_topdown.ppm"),
+                 draw_map_topdown(gmap, trajectory=kt))
+        # interactive 3D session — the live-RViz counterpart
+        export_html_viewer(os.path.join(out_dir, "viewer.html"), kt, map_xyz=gmap)
     return dict(n_keyframes=n, n_corner=len(corner), n_surf=len(surf))

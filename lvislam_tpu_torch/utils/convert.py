@@ -6,9 +6,11 @@ tree whose leaves go through ``np.asarray``), ``LioCaps``, ``LioParams``,
 ``CameraIntrinsics``, ``TrackerParams``, ``TrackerState``, and the IMU and
 VIO side's ``FusionState``, ``PreintState``, ``WindowState``, ``Prior``,
 ``FeatureTable``, ``VioState``, the loop detector's ``LoopCaps`` and
-``LoopDB``, the fused system's ``LviConfig`` and ``LviSystem``, and their
-parameter dataclasses into the port's objects on a given device, so both
-implementations can start from one state. Works on the objects' field names
+``LoopDB``, the fused system's ``LviConfig`` and ``LviSystem``, the
+calibration tool's ``CalibResult``, the ``PoseGraph`` that
+``dense_information`` reads, the message dataclasses of ``core/messages``,
+and their parameter dataclasses into the port's objects on a given device,
+so both implementations can start from one state. Works on the objects' field names
 only; imports nothing of JAX.
 """
 
@@ -20,6 +22,7 @@ import numpy as np
 import torch
 
 from ..core import config as sc
+from ..core import messages as msg
 from ..core.config import CameraIntrinsics
 from ..models import pipeline as lvi
 from ..models.lio import imu_fusion, mapping, pipeline
@@ -28,6 +31,7 @@ from ..models.vio import estimator as est
 from ..models.vio import feature_manager as fm
 from ..models.vio import feature_tracker as ft
 from ..ops import ba
+from ..ops import calibration as cal
 from ..ops import posegraph as pg
 from ..ops import preintegration as pre
 from ..ops import voxel_hash as vh
@@ -176,6 +180,25 @@ def loop_db_from_jax(jdb, device=None) -> ld.LoopDB:
     return _tree(ld.LoopDB, jdb, device)
 
 
+def posegraph_from_jax(jgraph, device=None) -> pg.PoseGraph:
+    """A JAX ``PoseGraph`` (the input of `dense_information`) -> the port's."""
+    return _tree(pg.PoseGraph, jgraph, device)
+
+
+def calib_result_from_jax(jres, device=None) -> cal.CalibResult:
+    return _tree(cal.CalibResult, jres, device)
+
+
+def message_from_jax(jmsg, device=None):
+    """A JAX ``core.messages`` dataclass (``ImuSample``, ``LidarScan``,
+    ``CloudInfo``, ``Odometry``, ``FeatureFrame``, ``CameraImage``) -> the
+    port's class of the same name; fields left None stay None."""
+    cls = getattr(msg, type(jmsg).__name__)
+    return cls(**{f.name: None if getattr(jmsg, f.name) is None
+                  else _tensor(getattr(jmsg, f.name), device)
+                  for f in dataclasses.fields(cls)})
+
+
 def lvi_config_from_jax(jcfg) -> lvi.LviConfig:
     """A JAX ``LviConfig`` -> the port's, every nested configuration
     converted (`replay_batch` and the other fields as they are)."""
@@ -218,6 +241,8 @@ def lvi_system_from_jax(jsys, device=None, sampler=None) -> lvi.LviSystem:
     else:
         sys_.imu_gyro_l = copy.deepcopy(jsys.imu_gyro_l)
         sys_.imu_acc_l = copy.deepcopy(jsys.imu_acc_l)
+    for slot, img8 in getattr(jsys, "_dbg_kf_imgs", {}).items():
+        sys_._debug_keep(_tensor(img8, dev), slot)
     sys_._vio_frame_count = int(np.asarray(jsys.vio.frame_count))
     sys_._fusion_initialized = bool(np.asarray(jsys.fusion.initialized))
     return sys_

@@ -1,7 +1,8 @@
 """Synthetic world — a numpy copy of ``lvislam_tpu.utils.synthetic``: the
 room world, batch raycasting, smooth analytic trajectories with an ideal
 IMU, one spinning multi-beam lidar sweep with real motion skew, and camera
-images of the procedurally textured world through any camera model.
+images of the procedurally textured world through any camera model, and
+landmarks on the world's surfaces.
 
 The copy exists so the port can make the bench's scans and frames where JAX
 is not installed; the tests hold it to the JAX package's module. Everything
@@ -182,6 +183,27 @@ def figure8_trajectory(scale: float = 4.0, period: float = 40.0, z_amp: float = 
     return Trajectory(pos_fn=pos, rpy_fn=rpy)
 
 
+def circle_trajectory(radius: float = 3.0, period: float = 8.0,
+                      z_amp: float = 0.1) -> Trajectory:
+    """Closed circular orbit with tangent heading: the pose at t + period is
+    IDENTICAL to the pose at t — the revisit a loop-closure test needs."""
+    w = 2 * np.pi / period
+
+    def pos(t):
+        return np.stack(
+            [radius * np.cos(w * t), radius * np.sin(w * t),
+             z_amp * np.sin(2 * w * t)],
+            axis=-1,
+        )
+
+    def rpy(t):
+        yaw = np.unwrap(np.asarray(w * t + np.pi / 2, float))
+        z = np.zeros_like(yaw)
+        return np.stack([z, z, yaw], axis=-1)
+
+    return Trajectory(pos_fn=pos, rpy_fn=rpy)
+
+
 def simulate_imu_stream(
     traj: Trajectory,
     t0: float,
@@ -346,6 +368,24 @@ def render_camera_image(
     pts = origin + d_world * np.where(np.isfinite(rngs), rngs, 0.0)[:, None]
     img = np.where(np.isfinite(rngs), procedural_texture(pts), 0.0)
     return img.reshape(height, width).astype(np.float32)
+
+
+def landmark_points(world: World, n: int = 500, seed: int = 0) -> np.ndarray:
+    """Random well-distributed 3D landmarks on world surfaces (for SfM/BA
+    synthetic feature tracks)."""
+    rng = np.random.default_rng(seed)
+    pts = []
+    P = world.plane_p0.shape[0]
+    for i in range(P):
+        k = max(2, n // P)
+        ua = rng.uniform(-1, 1, k) * world.plane_ext[i, 0]
+        ub = rng.uniform(-1, 1, k) * world.plane_ext[i, 1]
+        pts.append(
+            world.plane_p0[i]
+            + ua[:, None] * world.plane_a[i]
+            + ub[:, None] * world.plane_b[i]
+        )
+    return np.concatenate(pts)[:n]
 
 
 def vio_stream_jobs(duration: float, cam_rate: float = 10.0, imu_rate: float = 200.0,
@@ -610,3 +650,92 @@ def ray_points(world: World, traj: Trajectory, t: float, kp: np.ndarray,
     hit = np.isfinite(rng_hit)
     pts = p[0] + d_world * np.where(hit, rng_hit, 10.0)[:, None]
     return pts.astype(np.float32), hit
+
+
+# ---------------------------------------------------------------------------
+# Calibration boards (the camera calibration tool's inputs)
+# ---------------------------------------------------------------------------
+
+def render_board(Hm, rows, cols, H=240, W=320, blur=1.0, seed=0):
+    """A checkerboard with (rows x cols) INNER corners seen through the
+    homography `Hm` (board cell coordinates -> pixels), 4x4 supersampled,
+    Gaussian-blurred and with noise: a copy of
+    ``tests/test_chessboard.py:render_board``. Returns (float32 image, true
+    corner pixels (rows*cols, 2) [x, y])."""
+    from scipy.ndimage import gaussian_filter
+
+    S = 4
+    offs = (np.arange(S) + 0.5) / S - 0.5
+    img = np.zeros((H, W))
+    Hi = np.linalg.inv(Hm)
+    for oy in offs:
+        for ox in offs:
+            yy, xx = np.meshgrid(np.arange(H) + oy, np.arange(W) + ox, indexing="ij")
+            u = Hi[0, 0] * xx + Hi[0, 1] * yy + Hi[0, 2]
+            v = Hi[1, 0] * xx + Hi[1, 1] * yy + Hi[1, 2]
+            w = Hi[2, 0] * xx + Hi[2, 1] * yy + Hi[2, 2]
+            u, v = u / w, v / w
+            inside = (u > 0) & (u < cols + 1) & (v > 0) & (v < rows + 1)
+            checker = ((np.floor(u) + np.floor(v)) % 2).astype(np.float64)
+            img += np.where(inside, checker, 0.7)
+    img /= S * S
+    img = gaussian_filter(img, blur)
+    img += np.random.default_rng(seed).normal(0, 0.01, img.shape)
+
+    ii, jj = np.meshgrid(np.arange(1, rows + 1), np.arange(1, cols + 1), indexing="ij")
+    pts = np.stack([jj.ravel(), ii.ravel(), np.ones(rows * cols)])
+    pix = Hm @ pts
+    return img.astype(np.float32), (pix[:2] / pix[2]).T
+
+
+def board_view_homography(rvec, tvec, f, cx, cy, square):
+    """Board cell coordinates (inner corner (j+1, i+1)) -> pixels of a pinhole
+    (f, cx, cy) seeing the board plane z = 0 at pose (rvec, tvec); as
+    ``tests/test_chessboard_calibration_e2e.py:view_homography``."""
+    K = np.array([[f, 0, cx], [0, f, cy], [0, 0, 1.0]])
+    R = Rsc.from_rotvec(rvec).as_matrix()
+    Rt = np.column_stack([R[:, 0], R[:, 1], tvec])
+    S = np.array([[square, 0, -square], [0, square, -square], [0, 0, 1.0]])
+    Hm = K @ Rt @ S
+    return Hm / Hm[2, 2]
+
+
+def calibration_board_poses(n_views: int = 8, seed: int = 4):
+    """The strongly tilted board poses of
+    ``tests/test_chessboard_calibration_e2e.py`` (rvec, tvec) a view."""
+    rng = np.random.default_rng(seed)
+    views = []
+    for _ in range(n_views):
+        rv = np.array([rng.uniform(0.2, 0.35) * rng.choice([-1, 1]),
+                       rng.uniform(0.2, 0.35) * rng.choice([-1, 1]),
+                       rng.uniform(-0.3, 0.3)])
+        tv = np.array([rng.uniform(-0.135, -0.105), rng.uniform(-0.105, -0.075),
+                       rng.uniform(0.42, 0.65)])
+        views.append((rv, tv))
+    return views
+
+
+def calibration_views(project, intr_true, n_views: int = 8, seed: int = 0):
+    """Synthetic board observations of ``tests/test_calibration.py:
+    synth_views``: a 7 x 5 grid of 5 cm cells seen from `n_views` random
+    poses, projected by `project(pts_cam (N, 3) float32) -> (N, 2)` (the
+    camera under test) with 0.1 px noise. Returns (board (N, 2) float32,
+    image points (V, N, 2), rvecs (V, 3), tvecs (V, 3))."""
+    rng = np.random.default_rng(seed)
+    gx, gy = np.meshgrid(np.arange(7) * 0.05, np.arange(5) * 0.05)
+    board = np.stack([gx.ravel(), gy.ravel()], -1).astype(np.float32)
+    obj = np.concatenate([board, np.zeros((len(board), 1), np.float32)], -1)
+    rvecs, tvecs, img_pts = [], [], []
+    for _ in range(n_views):
+        rv = rng.uniform(-0.3, 0.3, 3)
+        rv[2] = rng.uniform(-0.5, 0.5)
+        tv = np.array([rng.uniform(-0.1, 0.0), rng.uniform(-0.1, 0.0),
+                       rng.uniform(0.4, 0.8)])
+        R = Rsc.from_rotvec(rv).as_matrix()
+        pc = obj @ R.T + tv
+        uv = np.asarray(project(np.asarray(pc, np.float32)))
+        uv = uv + rng.normal(0, 0.1, uv.shape)
+        rvecs.append(rv)
+        tvecs.append(tv)
+        img_pts.append(uv)
+    return board, np.stack(img_pts), np.stack(rvecs), np.stack(tvecs)

@@ -292,13 +292,19 @@ def test_euroc_reader_equals_jax(tmp_path):
 
 
 def test_euroc_reader_without_pil_raises(tmp_path, monkeypatch):
-    """Where PIL is missing the port raises; the JAX reader drops every
-    frame and yields the IMU alone (a measured difference, ROADMAP.md)."""
+    """Where PIL is missing the port no longer raises: its own PNG decoder
+    (`utils/png.py`) yields every frame, equal to the frames the JAX reader
+    decodes with PIL; the JAX reader without PIL drops every frame and
+    yields the IMU alone."""
     root = euroc_dir(tmp_path / "mav0")
+    with_pil = list(jbag.euroc_reader(root))
     monkeypatch.setitem(sys.modules, "PIL", None)
     monkeypatch.delitem(sys.modules, "PIL.Image", raising=False)
-    with pytest.raises(ImportError):
-        list(tbag.euroc_reader(root))
+    tm = list(tbag.euroc_reader(root))
+    assert [m[:3] for m in tm] == [m[:3] for m in with_pil]
+    assert [m[2] for m in tm].count("image") == 3
+    for a, b in zip(with_pil, tm):
+        assert_msg_equal(a[3], b[3])
     assert [m[2] for m in jbag.euroc_reader(root)] == ["imu"] * 5
 
 

@@ -99,16 +99,26 @@ def test_save_map_service_equals_jax(tmp_path, resolution):
     tsum = tck.save_map_service(tst, str(tdir), resolution)
     assert tsum == jsum and tsum["n_keyframes"] == 5 and tsum["n_corner"] > 0
     port_files = sorted(os.listdir(tdir))
-    assert port_files == ["CornerMap.pcd", "GlobalMap.pcd", "SurfMap.pcd",
-                          "trajectory.pcd", "transformations.txt"]
+    assert port_files == sorted(os.listdir(jdir)) == [
+        "CornerMap.pcd", "GlobalMap.pcd", "GlobalMap_topdown.ppm", "SurfMap.pcd",
+        "trajectory.pcd", "transformations.txt", "viewer.html"]
     for name in ("trajectory.pcd", "transformations.txt"):
         assert read(tdir / name) == read(jdir / name), name
+    same_map = read(tdir / "GlobalMap.pcd") == read(jdir / "GlobalMap.pcd")
     for name in ("CornerMap.pcd", "SurfMap.pcd", "GlobalMap.pcd"):
         if read(tdir / name) == read(jdir / name):
             continue
         (th, tp), (jh, jp) = pcd_points(tdir / name), pcd_points(jdir / name)
         assert th == jh and tp.shape == jp.shape, name
         np.testing.assert_allclose(tp, jp, atol=MAP_TOL_M, rtol=0, err_msg=name)
+    # the viewer artifacts are drawn from the same map: byte-equal where the
+    # map's text is, else the same size and header
+    for name in ("GlobalMap_topdown.ppm", "viewer.html"):
+        t_b, j_b = (tdir / name).read_bytes(), (jdir / name).read_bytes()
+        if same_map:
+            assert t_b == j_b, name
+        else:
+            assert t_b[:20] == j_b[:20], name
 
 
 def test_global_map_points_empty_map():

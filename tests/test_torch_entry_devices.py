@@ -13,7 +13,9 @@ from lvislam_tpu_torch.models.pipeline import LviConfig, LviSystem
 from lvislam_tpu_torch.models.vio import estimator, feature_manager
 from lvislam_tpu_torch.models.vio.feature_tracker import FeatureTracker, tracker_init, TrackerParams
 from lvislam_tpu_torch.models.vio.pipeline import VioRunner, VioRunnerConfig
-from lvislam_tpu_torch.ops import ba, preintegration
+from lvislam_tpu_torch.core import messages
+from lvislam_tpu_torch.ops import ba, chessboard, preintegration
+from lvislam_tpu_torch.scripts import run_euroc_vio, run_synthetic_lvi
 from lvislam_tpu_torch.utils import synthetic
 
 torch.set_num_threads(1)
@@ -51,7 +53,49 @@ BUILDERS = {
     "LviSystem": lambda **kw: LviSystem(LVI_CFG, **kw).depth_clouds,
     "db_init": lambda **kw: loop_detector.db_init(loop_detector.LoopCaps(
         max_keyframes=4, extra_points=8, vocab_words=16), **kw).bags,
+    "validity_mask": lambda **kw: messages.validity_mask(2, 4, **kw),
+    "board_object_points": lambda **kw: chessboard.board_object_points(2, 3, 0.1, **kw),
+    "run_euroc_vio.main": lambda **kw: _script_device(run_euroc_vio, ["/nonexistent"], **kw),
+    "run_synthetic_lvi.main": lambda **kw: _script_device(run_synthetic_lvi, ["0.05"], **kw),
 }
+
+
+class _Built(Exception):
+    pass
+
+
+def _script_device(script, argv, device=None):
+    """A script's `main` up to the system it builds: the device of the
+    first tensor it makes (the run itself is stopped there)."""
+    made = []
+    cls = script.VioRunner if script is run_euroc_vio else script.lvi.LviSystem
+
+    class Stop(cls):
+        def __init__(self, cfg, device=None, **kw):
+            made.append(torch.empty(0, device=_resolve(device)))
+            raise _Built
+
+    name = "VioRunner" if script is run_euroc_vio else None
+    try:
+        if name:
+            script.VioRunner = Stop
+        else:
+            script.lvi.LviSystem = Stop
+        script.main(argv + ([] if device is None else ["--device", device]))
+    except _Built:
+        pass
+    finally:
+        if name:
+            script.VioRunner = cls
+        else:
+            script.lvi.LviSystem = cls
+    return made[0]
+
+
+def _resolve(device):
+    from lvislam_tpu_torch.core.device import resolve
+
+    return resolve(device)
 
 
 @pytest.mark.parametrize("name", list(BUILDERS))

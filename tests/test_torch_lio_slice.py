@@ -298,7 +298,9 @@ def test_port_imports_no_jax():
         "        'utils.bus', 'utils.metrics', 'ops.brief', 'ops.ransac', 'models.loop.loop_detector',\n"
         "        'models.vio.frame_step', 'models.pipeline', 'core.config', 'core.yamlite',\n"
         "        'utils.bag', 'utils.jpeg', 'utils.checkpoint', 'utils.bag_writer',\n"
-        "        'scripts.run_rosbag_lvi']\n"
+        "        'scripts.run_rosbag_lvi', 'core.messages', 'utils.profiling', 'utils.png',\n"
+        "        'utils.debugviz', 'utils.native', 'ops.chessboard', 'ops.calibration',\n"
+        "        'scripts.run_euroc_vio', 'scripts.run_synthetic_lvi']\n"
         "missing = [m for m in need if 'lvislam_tpu_torch.' + m not in sys.modules]\n"
         "assert not missing, missing\n"
         "print('clean', len([m for m in sys.modules if m.startswith('lvislam_tpu_torch')]))\n"

@@ -4,6 +4,7 @@ one carried state, the host-side glue, and (slow) the JAX interactive path's
 own reference values over the 12 s parity sequence."""
 
 import copy
+import os
 import sys
 import time
 from pathlib import Path
@@ -370,15 +371,89 @@ def test_loop_detect_points_and_keyframe_insert(jax_run, monkeypatch):
     assert int(port.loop_db.count) == int(jsys.loop_db.count) + 1
 
 
-def test_unported_options_raise():
-    """`pipeline_devices` and `debug_dir` would change what the caller gets:
-    they raise, naming the roadmap item, instead of being ignored."""
+def test_unported_options_raise(tmp_path):
+    """`pipeline_devices` would change what the caller gets: it raises,
+    naming the roadmap item, instead of being ignored. `debug_dir` is ported
+    now (`utils/debugviz.py`): a system with it builds."""
     from lvislam_tpu_torch.models.pipeline import LviConfig, LviSystem
 
-    for kw in (dict(pipeline_devices=("a", "b", "c")), dict(debug_dir="/nonexistent")):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            LviSystem(LviConfig(**kw), device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        LviSystem(LviConfig(pipeline_devices=("a", "b", "c")), device="cpu")
+    sys_ = LviSystem(LviConfig(debug_dir=str(tmp_path / "dbg"), vocab_path=None), device="cpu")
+    assert sys_.cfg.debug_dir and sys_._dbg_kf_imgs is None
 
+
+def test_debug_dir_hooks_from_carried_state(parity_data, jax_run, tmp_path):
+    """`LviConfig(debug_dir=...)` from the carried JAX state at 1.05 s, then
+    0.6 s of the parity sequence with the overlays every 2 frames: the port
+    writes the files JAX writes (names, sizes, headers; at least 99% of the
+    bytes equal: the tracks agree to ~1e-4 px, so a cross can move by one
+    pixel), and a port run without the hooks gives the same trajectory bit
+    for bit (the hooks read back and change nothing)."""
+    import dataclasses
+
+    from lvislam_tpu.utils.bus import Bus
+
+    jsys = copy.deepcopy(jax_run[0])
+    jsys.cfg.debug_dir, jsys.cfg.debug_every = str(tmp_path / "jax"), 2
+    # a deep copy's bus still calls the handlers of the system it was copied
+    # from (closures are not copied): subscribe the copy's own, as its
+    # constructor does (no event is pending)
+    jsys.bus = Bus()
+    jsys.bus.subscribe("imu", jsys._on_imu)
+    jsys.bus.subscribe("lidar", lambda t, m: jsys._timed("lidar", jsys._on_lidar, t, m))
+    jsys.bus.subscribe("image", lambda t, m: jsys._timed("image", jsys._on_image, t, m))
+    port = convert.lvi_system_from_jax(jsys, device="cpu", sampler=jax_sampler)
+    port.cfg = dataclasses.replace(port.cfg, debug_dir=str(tmp_path / "port"))
+    plain = convert.lvi_system_from_jax(jax_run[0], device="cpu", sampler=jax_sampler)
+    for s in (jsys, port, plain):
+        tsyn.feed_lvi(s, parity_data, CARRY_T, END_T)
+        s.run()
+    names = sorted(os.listdir(tmp_path / "jax"))
+    assert names == sorted(os.listdir(tmp_path / "port"))
+    assert len(names) >= 4 and any(n.startswith("depth_") for n in names)
+    for name in names:
+        a = (tmp_path / "jax" / name).read_bytes()
+        b = (tmp_path / "port" / name).read_bytes()
+        assert len(a) == len(b) and a[:15] == b[:15], name
+        same = np.frombuffer(a, np.uint8) == np.frombuffer(b, np.uint8)
+        assert same.mean() >= 0.99, (name, same.mean())
+    assert [t for t, _ in port.trajectory] == [t for t, _ in plain.trajectory]
+    for (_, x), (_, y) in zip(port.trajectory, plain.trajectory):
+        np.testing.assert_array_equal(x, y)
+
+
+
+def test_debug_loop_match_image(tmp_path):
+    """The loop hook: each keyframe's 8-bit image is kept in the device ring
+    at its database slot, and on a found loop the match image is written, byte for
+    byte the JAX module's `draw_matches` of the same arrays (the ring's old
+    image, the new frame, the old slot's keypoints in pixels, the tracks)."""
+    from types import SimpleNamespace
+
+    from lvislam_tpu.utils import debugviz as jdv
+    from lvislam_tpu_torch.models.pipeline import LviConfig, LviSystem
+
+    sys_ = LviSystem(LviConfig(debug_dir=str(tmp_path), vocab_path=None), device="cpu")
+    rng = np.random.default_rng(3)
+    imgs = [torch.from_numpy(rng.random((240, 320)).astype(np.float32)) for _ in range(2)]
+    E, N = sys_.cfg.loop_caps.extra_points, 12
+    sys_.loop_db = SimpleNamespace(
+        kp_norm=torch.from_numpy(rng.normal(0, 0.3, (4, E, 2)).astype(np.float32)),
+        kp_valid=torch.from_numpy(rng.random((4, E)) > 0.3))
+    tout = SimpleNamespace(uv=torch.from_numpy(rng.uniform(0, 300, (N, 2)).astype(np.float32)))
+    for k, found in ((5, False), (6, True)):
+        sys_.vio_frames = k
+        cand = SimpleNamespace(cur_index=torch.tensor(k - 4), found=torch.tensor(found),
+                               old_index=torch.tensor(1))
+        sys_._debug_loop(imgs[k - 5], tout, cand, found)
+    assert sorted(os.listdir(tmp_path)) == ["loop_match_00006.ppm"]
+    cam = sys_.cfg.camera
+    old_u8 = np.clip(imgs[0].numpy() * 255.0, 0, 255).astype(np.uint8)
+    old_uv = sys_.loop_db.kp_norm[1].numpy() * float(cam.gamma1) + np.array([cam.u0, cam.v0])
+    jdv.save_ppm(str(tmp_path / "jax.ppm"), jdv.draw_matches(
+        old_u8, imgs[1].numpy(), old_uv, tout.uv.numpy(), sys_.loop_db.kp_valid[1].numpy()[:N]))
+    assert (tmp_path / "loop_match_00006.ppm").read_bytes() == (tmp_path / "jax.ppm").read_bytes()
 
 @pytest.mark.slow
 def test_jax_interactive_anchor():
