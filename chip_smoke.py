@@ -107,10 +107,10 @@ Phases, one line each:
    (if not, a second run with mapRebuildEvery=1 is printed beside it and
    gated). The streams of phases 14 and 15 are raycast by worker processes
    while phases 1-12 run.
-Phases 15, 16, 17, 20 and 21 run in five spawned processes of their own,
-on the card, while the main process runs phases 18, 19 and 14 (every phase
-is host-bound and the card mostly idle; so the host times of phases 14-21
-are taken with six processes on the card):
+Phases 15, 16, 17, 20, 21 and 23 run in six spawned processes of their
+own, on the card, while the main process runs phases 18, 19, 14 and 22
+(every phase is host-bound and the card mostly idle; so the host times of
+phases 14-23 are taken with seven processes on the card):
 
 16. bag_fixture: the bag-replay entry point (``python -m
    lvislam_tpu_torch.scripts.run_rosbag_lvi``, called in-process on the
@@ -171,6 +171,37 @@ are taken with six processes on the card):
 Phase 14's 4 s repeat runs with ``debug_dir`` set (``DEBUG_EVERY``): it
 must still be bit-identical to the first run and write the feature and
 depth overlays at that stride.
+
+22. multi_device (main process, after phase 14): the multi-device part at
+   config 3's widths, on meshes of ``cuda:0`` repeated (distinct cards where
+   the machine has them; each line prints which). Input: one steady scan of
+   phase 3's replay (scans 0-29 through ``LioPipeline``, then scan 30's
+   downsampled 512 corner / 2048 surf features, the state's pose and its
+   local map of 16384 corner / 65536 surf slots). (a) ``sharded_knn`` with
+   ``map`` = 1, 2, 4 against the unsharded ``knn``, both classes: sorted
+   distances within 1e-4 (rel and abs), equal neighbour sets for >= 98% of
+   the valid queries; (b) ``sharded_scan_to_map`` with ``map`` = 1, 2, 4
+   against ``scan_to_map``: x6 within 5e-4, residual counts within 2,
+   ``converged`` equal (``tests/test_parallel.py``'s bounds); ms each; (c)
+   ``make_batched_step`` on a (batch 4, map 1) mesh over four sequences of 16
+   scans starting at scans 0, 20, 40, 60 (features from the port's front
+   end): each sequence's outputs and final state bit-equal (sha256) to its
+   own unbatched ``map_step`` run, the keyframe clouds distinct, K1 / K2
+   launched as the unbatched runs launch them; the ms of a lockstep step
+   beside 4 x an unbatched step; (d) ``make_batched_loop_step`` on that
+   state with keyframe 0 made 100 s older (the ICP runs): equal to four
+   unbatched ``loop_closure_step`` calls.
+23. lvi_pipelined (a spawned process beside phase 14): phase 14's
+   configuration with ``pipeline_devices = (cuda:0,) * 3`` over the same
+   12 s stream, 2 s warm and 10 s timed. Gates: VIO initialized, 0
+   failures; frames estimated >= frames - 1; each stage's state on its
+   device; K1 on every processed scan (>= 1 a scan), K2-K4 not launched;
+   aligned ATE <= LVI_BAND x the worst JAX pipelined reading
+   (``utils/anchors.LVI_PIPELINED``: its own and four one-ulp runs); the
+   configuration (kernels aside) and stream hashes the anchor's; the first
+   4 s bit-identical on repeat. ``[lvi_pipelined_vs_parity]`` prints its
+   RTF and handler ms beside phase 14's (the pipelined ``image`` handler
+   covers stage T of frame k and stage E of frame k-1).
 
 ``--loop`` adds the 38 s revisit arm of ``bench.py:770-887`` on the parity
 configuration (192 keyframes, 16 loop slots): at least one loop factor.
@@ -1820,7 +1851,10 @@ def watch_system(sys_):
     rec = {"scans": [], "frames": []}
     counters = lambda: (hostsync.COUNT, kt.LAUNCHES, gnp.LAUNCHES, clahe.HIST_LAUNCHES,
                         clahe.APPLY_LAUNCHES)
-    on_lidar, on_image, lidar_seed = sys_._on_lidar, sys_._on_image, sys_._lidar_seed
+    # pipelined, the image handler is `_on_image_pipelined`: its frame
+    # record is the frame that stage E estimated in it (one behind)
+    image_name = "_on_image_pipelined" if sys_._pipelined else "_on_image"
+    on_lidar, on_image, lidar_seed = sys_._on_lidar, getattr(sys_, image_name), sys_._lidar_seed
     seeded = [False]
 
     def lidar(stamp, scan):
@@ -1836,14 +1870,16 @@ def watch_system(sys_):
         if sys_.vio_frames > n0:
             s = sys_.frame_summary
             rec["frames"].append((stamp, *[b - a for a, b in zip(c0, counters())],
-                                  seeded[0], bool(s[17] > 0.5), bool(s[18] > 0.5)))
+                                  seeded[0], bool(s[17] > 0.5), bool(s[18] > 0.5),
+                                  sys_.vio_frames))
 
     def seed(stamp):
         out = lidar_seed(stamp)
         seeded[0] = out is not None
         return out
 
-    sys_._on_lidar, sys_._on_image, sys_._lidar_seed = lidar, image, seed
+    sys_._on_lidar, sys_._lidar_seed = lidar, seed
+    setattr(sys_, image_name, image)
     return rec
 
 
@@ -1857,8 +1893,8 @@ def lvi_summary(sys_, rec, traj, t_lo: float):
 
     est = np.stack([x6[3:6] for _, x6 in sys_.trajectory]).astype(np.float64)
     gt = np.stack([traj.pose(np.array([t]))[0][0] for t, _ in sys_.trajectory])
-    init = next(((k + 1, "lidar_seed" if f[6] else "visual")
-                 for k, f in enumerate(rec["frames"]) if f[7]), (None, None))
+    init = next(((f[9], "lidar_seed" if f[6] else "visual")
+                 for f in rec["frames"] if f[7]), (None, None))
     scans = [r for r in rec["scans"] if r[0] >= t_lo]
     frames = [r for r in rec["frames"] if r[0] >= t_lo]
     done = {t for t, *_ in sys_.trajectory}
@@ -1892,7 +1928,7 @@ def run_lvi(cfg, data, dev, warm_s: float, end_s: float):
     from lvislam_tpu_torch.utils import synthetic as syn
 
     sync = torch.cuda.synchronize if torch.device(dev).type == "cuda" else (lambda: None)
-    sys_ = LviSystem(cfg, device=dev)
+    sys_ = LviSystem(cfg, device=None if cfg.pipeline_devices else dev)
     rec = watch_system(sys_)
     syn.feed_lvi(sys_, data, 0.0, warm_s)
     sys_.run()
@@ -1962,7 +1998,7 @@ def lvi_parity_phase(stream, dev):
         raise AssertionError("lvi_parity determinism: the first 4 s differ (debug hooks on)")
     if files != want or not all(os.path.getsize(os.path.join(dbg, f)) > 0 for f in files):
         raise AssertionError(f"lvi_parity debug: wrote {files}, expected {want}")
-    return r
+    return dict(r, rtf=(LVI_PARITY_S - LVI_WARM_S) / wall)
 
 
 def lvi_full_phase(data, dev):
@@ -2750,6 +2786,337 @@ def synthetic_phase(dev):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phases 22-23: the multi-device part (slice 7)
+# ---------------------------------------------------------------------------
+
+MD_STEADY_SCAN = 30  # phase 22's scan: phase 3's replay warmed over scans 0-29
+MD_MAPS = (1, 2, 4)  # `map` axis widths of (a) and (b)
+MD_STARTS, MD_STEPS = (0, 20, 40, 60), 16  # (c): four sequences of 16 scans
+MD_KNN_TOL, MD_KNN_SETS = 1e-4, 0.98  # tests/test_parallel.py's bounds
+MD_X6_TOL, MD_RES_TOL = 5e-4, 2
+
+
+def phase_mesh(n: int, map_parallel: int):
+    """A mesh of n slots, (n // map_parallel, map_parallel): distinct cards
+    where the machine has n, else `cuda:0` repeated. Returns (mesh, which)."""
+    import torch
+
+    from lvislam_tpu_torch.parallel import mesh
+
+    distinct = torch.cuda.device_count() >= n
+    devs = [f"cuda:{i}" for i in range(n)] if distinct else ["cuda:0"] * n
+    return (mesh.make_mesh(devices=devs, map_parallel=map_parallel),
+            "distinct cards" if distinct else "cuda:0 repeated")
+
+
+def steady_scan(cfg, scans, dev, n_warm: int):
+    """Phase 3's replay (`LioPipeline`, config `cfg`) over scans 0..n_warm-1,
+    then scan n_warm's downsampled features (`map_step`'s voxel filter:
+    `scan_corner` / `scan_surf` slots), the state's pose as the initial guess
+    and its local map: the 9 arguments of `scan_to_map`."""
+    from lvislam_tpu_torch.models.lio.pipeline import LioPipeline
+    from lvislam_tpu_torch.ops import pointcloud as pc
+
+    pipe = LioPipeline(cfg, device=dev)
+    for s in scans[:n_warm]:
+        pipe.process_scan(*s)
+    _, feats = pipe.features(*scans[n_warm])
+    p, caps, st = cfg.params, cfg.caps, pipe.state
+    c_xyz, c_val, _ = pc.voxel_downsample(feats.corner_xyz, feats.corner_valid,
+                                          p.mappingCornerLeafSize, caps.scan_corner)
+    s_xyz, s_val, _ = pc.voxel_downsample(feats.surf_xyz, feats.surf_valid,
+                                          p.mappingSurfLeafSize, caps.scan_surf)
+    return (st.x6, c_xyz, c_val, s_xyz, s_val, st.map_corner, st.map_corner_valid,
+            st.map_surf, st.map_surf_valid)
+
+
+def sequence_inputs(pipe, scans, starts, n_steps: int):
+    """Per step, the scan info dicts and `FeatureResult`s of the sequences
+    that start at `starts` (the port's front end, `LioPipeline.features`)."""
+    return [[pipe.features(*scans[s + i]) for s in starts] for i in range(n_steps)]
+
+
+def step_digest(outs, state) -> str:
+    """sha256 of a sequence's per-step outputs and its final state."""
+    import numpy as np
+
+    from lvislam_tpu_torch.utils import convert
+
+    arrays = [np.asarray(x.detach().cpu()) for o in outs for x in o]
+    return sha256(*arrays, *convert.to_numpy(state).values())
+
+
+def unbatched_runs(caps, params, steps, dev):
+    """Each sequence of `steps` through `map_step` alone: (digests, final
+    states, seconds a step of one sequence, K1 and K2 launches)."""
+    import torch
+
+    from lvislam_tpu_torch.models.lio import mapping
+    from lvislam_tpu_torch.ops import gn_partials as gnp
+    from lvislam_tpu_torch.ops import knn_tail as kt
+
+    kt.LAUNCHES = gnp.LAUNCHES = 0
+    digests, states, times = [], [], []
+    for b in range(len(steps[0])):
+        st, outs = mapping.lio_init(caps, dev), []
+        for step in steps:
+            info, feats = step[b]
+            drain(dev)
+            t0 = time.perf_counter()
+            st, out = mapping.map_step(st, info, feats, caps, params)
+            drain(dev)
+            times.append(time.perf_counter() - t0)
+            outs.append(out)
+        digests.append(step_digest(outs, st))
+        states.append(st)
+    return digests, states, times, {"K1": kt.LAUNCHES, "K2": gnp.LAUNCHES}
+
+
+def batched_run(caps, params, steps, mesh, dev):
+    """The sequences in lockstep through `make_batched_step` on `mesh`:
+    (per-sequence digests, batched state, seconds a lockstep step, K1 and
+    K2 launches)."""
+    import torch
+
+    from lvislam_tpu_torch.models.lio.frontend import FeatureResult
+    from lvislam_tpu_torch.ops import gn_partials as gnp
+    from lvislam_tpu_torch.ops import knn_tail as kt
+    from lvislam_tpu_torch.parallel import batch_replay, mesh as pmesh
+
+    B = len(steps[0])
+    step_fn = batch_replay.make_batched_step(caps, params, mesh)
+    kt.LAUNCHES = gnp.LAUNCHES = 0
+    state = batch_replay.batched_lio_init(caps, B, mesh)
+    outs, times = [], []
+    for step in steps:
+        info = {k: torch.stack([i[k] for i, _ in step]) for k in step[0][0]}
+        feats = FeatureResult(*(torch.stack(xs) for xs in zip(*[f for _, f in step])))
+        drain(dev)
+        t0 = time.perf_counter()
+        state, out = step_fn(state, info, feats)
+        drain(dev)
+        times.append(time.perf_counter() - t0)
+        outs.append(pmesh.tree_map(pmesh.gather, out))
+    launches = {"K1": kt.LAUNCHES, "K2": gnp.LAUNCHES}
+    whole = pmesh.tree_map(pmesh.gather, state)
+    digests = [step_digest([pmesh.tree_map(lambda x, b=b: x[b], o) for o in outs],
+                           pmesh.tree_map(lambda x, b=b: x[b], whole)) for b in range(B)]
+    return digests, state, times, launches
+
+
+def knn_agreement(a, b, valid) -> tuple[float, float, bool]:
+    """(max |sorted distance difference| over the valid queries, share of
+    valid queries whose neighbour sets are equal, whether every difference
+    is within MD_KNN_TOL relative and absolute) of two kNN results."""
+    import numpy as np
+
+    (ia, da), (ib, db) = [(i.cpu().numpy(), d.cpu().numpy()) for i, d in (a, b)]
+    v = valid.cpu().numpy()
+    diff = np.abs(np.sort(da[v], 1) - np.sort(db[v], 1))
+    tol = MD_KNN_TOL + MD_KNN_TOL * np.abs(np.sort(db[v], 1))
+    sets = float(np.mean([set(x) == set(y) for x, y in zip(ia[v], ib[v])]))
+    return float(diff.max()), sets, bool((diff <= tol).all())
+
+
+def multi_device_phase(cfg, scans, dev, n_warm: int = MD_STEADY_SCAN, maps=MD_MAPS,
+                       starts=MD_STARTS, n_steps: int = MD_STEPS):
+    """Phase 22: the multi-device part at config 3's widths. (a) the
+    map-sharded kNN and (b) the map-sharded scan-to-map GN against the
+    unsharded functions on one steady scan of phase 3's replay; (c) the
+    batched LIO step of four sequences against their unbatched runs; (d)
+    the batched loop closure against four unbatched calls. Returns the K1 /
+    K2 launches of (c)'s batched run."""
+    import numpy as np
+    import torch
+
+    from lvislam_tpu_torch.core import lie
+    from lvislam_tpu_torch.models.lio import mapping
+    from lvislam_tpu_torch.models.lio.pipeline import LioPipeline
+    from lvislam_tpu_torch.ops import scan2map
+    from lvislam_tpu_torch.parallel import batch_replay, mesh as pmesh
+    from lvislam_tpu_torch.parallel import sharded_knn, sharded_scan2map
+    from lvislam_tpu_torch.utils import convert
+
+    args = steady_scan(cfg, scans, dev, n_warm)
+    x6, c_xyz, c_val, s_xyz, s_val, mc, mcv, ms, msv = args
+    R, t = lie.x6_rotation(x6), x6[3:6]
+    classes = {"corner": (c_xyz @ R.T + t, c_val, mc, mcv),
+               "surf": (s_xyz @ R.T + t, s_val, ms, msv)}
+    log("multi_device_inputs", scan=n_warm, corner=f"{int(c_val.sum())}/{c_xyz.shape[0]}",
+        surf=f"{int(s_val.sum())}/{s_xyz.shape[0]}",
+        map_corner=f"{int(mcv.sum())}/{mc.shape[0]}", map_surf=f"{int(msv.sum())}/{ms.shape[0]}")
+
+    # (a) the map-sharded kNN
+    for name, (q, qv, m, mv) in classes.items():
+        ref = scan2map.knn(q, qv, m, mv, k=5)
+        row = {"unsharded_ms": round(cuda_ms(lambda: scan2map.knn(q, qv, m, mv, k=5), 10, 2), 4)}
+        for n_map in maps:
+            mesh, which = phase_mesh(n_map, n_map)
+            fn = sharded_knn.sharded_knn(mesh, k=5)
+            m_sh = pmesh.put(m, mesh, pmesh.Placement("map"))
+            mv_sh = pmesh.put(mv, mesh, pmesh.Placement("map"))
+            err, sets, ok = knn_agreement(fn(q, qv, m_sh, mv_sh), ref, qv)
+            row[f"map{n_map}_ms"] = round(cuda_ms(lambda: fn(q, qv, m_sh, mv_sh), 10, 2), 4)
+            row[f"map{n_map}_dist_err"] = err
+            row[f"map{n_map}_same_sets"] = round(sets, 4)
+            if not (ok and sets >= MD_KNN_SETS):
+                raise AssertionError(f"multi_device knn {name} map={n_map}: distance error "
+                                     f"{err:.3e}, equal sets {sets:.4f}")
+        log("multi_device_knn", cls=name, Q=q.shape[0], M=m.shape[0], mesh=which, **row)
+
+    # (b) the map-sharded scan-to-map GN
+    it = cfg.params.degeneracyEigenThreshold
+    ref = scan2map.scan_to_map(*args, max_iters=20, eigen_thresh=it)
+    t0 = time.perf_counter()
+    scan2map.scan_to_map(*args, max_iters=20, eigen_thresh=it)
+    drain(dev)
+    row = {"unsharded_ms": round((time.perf_counter() - t0) * 1e3, 2), "iters": int(ref.it),
+           "num_residuals": int(ref.num_residuals), "converged": bool(ref.converged)}
+    for n_map in maps:
+        mesh, which = phase_mesh(n_map, n_map)
+        fn = sharded_scan2map.sharded_scan_to_map(mesh, max_iters=20, eigen_thresh=it)
+        sharded = list(args[:5]) + [pmesh.put(a, mesh, pmesh.Placement("map")) for a in args[5:]]
+        got = fn(*sharded)
+        t0 = time.perf_counter()
+        fn(*sharded)
+        drain(dev)
+        err = float((got.x6 - ref.x6).abs().max())
+        dres = int(got.num_residuals) - int(ref.num_residuals)
+        row.update({f"map{n_map}_ms": round((time.perf_counter() - t0) * 1e3, 2),
+                    f"map{n_map}_x6_err": err, f"map{n_map}_dres": dres,
+                    f"map{n_map}_iters": int(got.it)})
+        if not (err <= MD_X6_TOL and abs(dres) <= MD_RES_TOL
+                and bool(got.converged) == bool(ref.converged)):
+            raise AssertionError(f"multi_device scan_to_map map={n_map}: x6 error {err:.3e}, "
+                                 f"residuals {dres:+d}, converged {bool(got.converged)} vs "
+                                 f"{bool(ref.converged)}")
+    log("multi_device_gn", mesh=which, **row)
+
+    # (c) the batched LIO step: four sequences in lockstep on (batch 4, map 1)
+    caps, params = cfg.caps, cfg.params
+    steps = sequence_inputs(LioPipeline(cfg, device=dev), scans, starts, n_steps)
+    ref_d, ref_states, t_one, k_one = unbatched_runs(caps, params, steps, dev)
+    mesh, which = phase_mesh(len(starts), 1)
+    got_d, bstate, t_b, k_b = batched_run(caps, params, steps, mesh, dev)
+    whole = pmesh.tree_map(pmesh.gather, bstate)
+    surf0 = [whole.kf_surf[b, 0] for b in range(len(starts))]
+    distinct = all(not torch.equal(surf0[a], surf0[b])
+                   for a in range(len(starts)) for b in range(a))
+    steady = slice(2, None)
+    step_ms, one_ms = 1e3 * np.mean(t_b[steady]), 1e3 * np.mean(
+        [x for b in range(len(starts)) for x in t_one[b * n_steps:][:n_steps][steady]])
+    log("multi_device_batch", mesh=which, sequences=len(starts), steps=n_steps,
+        starts=",".join(map(str, starts)), keyframes=",".join(
+            str(int(k)) for k in whole.kf_count.tolist()),
+        identical=got_d == ref_d, digests=",".join(got_d), clouds_distinct=distinct,
+        launches_K1=k_b["K1"], launches_K2=k_b["K2"], unbatched_K1=k_one["K1"],
+        unbatched_K2=k_one["K2"], lockstep_step_ms=round(step_ms, 2),
+        four_unbatched_steps_ms=round(len(starts) * one_ms, 2))
+    if got_d != ref_d:
+        raise AssertionError(f"multi_device batch: sequences differ from their unbatched runs "
+                             f"({got_d} vs {ref_d})")
+    if not distinct:
+        raise AssertionError("multi_device batch: two sequences stored the same keyframe cloud")
+    if k_b != k_one or min(k_b.values()) <= 0:
+        raise AssertionError(f"multi_device batch: launches {k_b} vs unbatched {k_one}")
+
+    # (d) the batched loop closure, keyframe 0 of every sequence made 100 s
+    # older so the time gate opens and the submap ICP runs
+    kf_time = whole.kf_time.clone()
+    kf_time[:, 0] -= 100.0
+    aged = pmesh.put_tree(whole._replace(kf_time=kf_time), mesh, pmesh.batch_sharding(mesh))
+    t0 = time.perf_counter()
+    lstate, lres = batch_replay.make_batched_loop_step(caps, params)(aged)
+    drain(dev)
+    loop_ms = (time.perf_counter() - t0) * 1e3
+    lres, lstate = pmesh.tree_map(pmesh.gather, lres), pmesh.tree_map(pmesh.gather, lstate)
+    aged_whole = pmesh.tree_map(pmesh.gather, aged)
+    same = True
+    for b in range(len(starts)):
+        s2, r = mapping.loop_closure_step(pmesh.tree_map(lambda x, b=b: x[b], aged_whole),
+                                          caps, params)
+        got = [x[b] for x in lres]
+        same &= all(torch.equal(x, y) for x, y in zip(r, got))
+        a1 = convert.to_numpy(s2)
+        a2 = convert.to_numpy(pmesh.tree_map(lambda x, b=b: x[b], lstate))
+        same &= all(np.array_equal(a1[k], a2[k]) for k in a1)
+    log("multi_device_loop", found=",".join(str(int(x)) for x in lres.found.tolist()),
+        kf_to=",".join(str(int(x)) for x in lres.kf_to.tolist()),
+        fitness=",".join(f"{float(x):.5f}" for x in lres.fitness.tolist()),
+        identical=same, ms=round(loop_ms, 2))
+    if not same:
+        raise AssertionError("multi_device loop: the batched loop step differs from four "
+                             "unbatched loop_closure_step calls")
+    return k_b
+
+
+def lvi_pipelined_config(dev):
+    """Phase 14's configuration with its three stages (LIO, tracker,
+    estimator) placed on `dev`."""
+    return dataclasses.replace(lvi_parity_config(), pipeline_devices=(dev,) * 3)
+
+
+def lvi_pipelined_phase(data, dev):
+    """Phase 23: phase 14's configuration with `pipeline_devices = (dev,) *
+    3` over the 12 s parity stream, 2 s warm then 10 s timed; gated against
+    the JAX pipelined system's clean-CPU readings (`anchors.LVI_PIPELINED`);
+    the first 4 s repeated bit for bit. Returns its summary."""
+    import numpy as np
+
+    from lvislam_tpu_torch.utils import anchors
+    from lvislam_tpu_torch.utils import synthetic as syn
+
+    ref = anchors.LVI_PIPELINED
+    cfg = lvi_pipelined_config(dev)
+    cfg_cpu = anchors.config_sha256(lvi_parity_config(kernels=False))
+    seq = syn.lvi_sequence_sha256(data)
+    if cfg_cpu != ref["config_sha256"] or seq != ref["stream_sha256"]:
+        raise AssertionError(f"lvi_pipelined: config {cfg_cpu} / stream {seq} are not the "
+                             f"anchor's ({ref['config_sha256']} / {ref['stream_sha256']})")
+    traj = syn.figure8_trajectory(scale=3.0, period=30.0)
+    sys_, rec, wall = run_lvi(cfg, data, dev, LVI_WARM_S, LVI_PARITY_S)
+    r = lvi_summary(sys_, rec, traj, LVI_WARM_S)
+    worst = max(ref["ate_m"], *ref["ate_one_ulp_m"].values())
+    limit = LVI_BAND * worst
+    n_frames = sum(1 for t, _ in data["imgs"] if t < LVI_PARITY_S)
+    placed = {name: x.device for name, x in (
+        ("lio", sys_.lio.state.x6), ("fusion", sys_.fusion.pos), ("tracker", sys_.tracker.pts),
+        ("depth_ring", sys_.depth_clouds), ("vio", sys_.vio.ws.Ps), ("loop_db", sys_.loop_db.bags))}
+    want = {"lio": sys_._dev_lio, "fusion": sys_._dev_lio, "tracker": sys_._dev_trk,
+            "depth_ring": sys_._dev_trk, "vio": sys_._dev_vio, "loop_db": sys_._dev_vio}
+    log("lvi_pipelined", seconds=LVI_PARITY_S, timed_s=LVI_PARITY_S - LVI_WARM_S,
+        devices=",".join(map(str, cfg.pipeline_devices)),
+        rtf=round((LVI_PARITY_S - LVI_WARM_S) / wall, 4), wall_s=round(wall, 2),
+        frames=n_frames, ate_limit_m=round(limit, 5), jax_ate_m=round(ref["ate_m"], 5),
+        jax_worst_ate_m=round(worst, 5), jax_init_frame=ref["init_frame"],
+        jax_vio_frames=ref["vio_frames"], config_sha256=anchors.config_sha256(
+            dataclasses.replace(cfg, pipeline_devices=None)),
+        cpu_config_sha256=cfg_cpu, stream_sha256=seq,
+        placement=",".join(f"{k}:{v}" for k, v in placed.items()), **fmt_run(r))
+    if not (r["init_frame"] and r["failure_count"] == 0 and r["vins_odom"]):
+        raise AssertionError(f"lvi_pipelined: VIO init frame {r['init_frame']}, "
+                             f"failures {r['failure_count']}, vins_odom {r['vins_odom']}")
+    if r["vio_frames"] < n_frames - 1:
+        raise AssertionError(f"lvi_pipelined: {r['vio_frames']} frames estimated of {n_frames}")
+    if any(placed[k] != want[k] for k in placed):
+        raise AssertionError(f"lvi_pipelined: placement {placed}")
+    if not (r["K1_per_scan"] >= 1.0 and r["launches"]["K2"] == r["launches"]["K3"] ==
+            r["launches"]["K4"] == 0):
+        raise AssertionError(f"lvi_pipelined: launches {r['launches']} "
+                             f"(K1 {r['K1_per_scan']:.2f} a processed scan)")
+    if not r["ate_m"] <= limit:
+        raise AssertionError(f"lvi_pipelined: ATE {r['ate_m']:.4f} m over {limit:.4f} m")
+    sys2, _, _ = run_lvi(cfg, data, dev, LVI_WARM_S, LVI_REPEAT_S)
+    rows = lambda s: np.stack([np.r_[t, x6] for t, x6 in s.trajectory if t < LVI_REPEAT_S])
+    a, b = rows(sys_), rows(sys2)
+    log("lvi_pipelined_determinism", seconds=LVI_REPEAT_S, rows=len(b), sha256=sha256(b),
+        identical=bool(np.array_equal(a, b)))
+    if not np.array_equal(a, b):
+        raise AssertionError("lvi_pipelined determinism: the first 4 s differ")
+    return dict(r, rtf=(LVI_PARITY_S - LVI_WARM_S) / wall)
+
+
 def main() -> int:
     import torch
 
@@ -2775,14 +3142,14 @@ def main() -> int:
 
 
 def phase_pool():
-    """Five spawned processes (`phase_worker_init`) for phases 15, 16, 17,
-    20 and 21, which run on the card while the main process runs 18, 19 and
-    14: every phase is host-bound and the card is mostly idle, so the
+    """Six spawned processes (`phase_worker_init`) for phases 15, 16, 17,
+    20, 21 and 23, which run on the card while the main process runs 18, 19,
+    14 and 22: every phase is host-bound and the card is mostly idle, so the
     script's time stays under its limit on a slow host."""
     import multiprocessing
     from concurrent.futures import ProcessPoolExecutor
 
-    return ProcessPoolExecutor(5, mp_context=multiprocessing.get_context("spawn"),
+    return ProcessPoolExecutor(6, mp_context=multiprocessing.get_context("spawn"),
                                initializer=phase_worker_init, initargs=(T_START,))
 
 
@@ -2973,9 +3340,9 @@ def run_phases(pool, phases, dev) -> int:
     # ---- 13. the visual loop detector alone ----
     loop_ms = loop_scene_phase(syn.loop_scene(), dev)
 
-    # ---- 15, 16, 17, 20, 21: config 5 at the shipped scale and the
-    # bag-replay, EuRoC and synthetic entry points, each in a process of its
-    # own, on the card beside phase 14 ----
+    # ---- 15, 16, 17, 20, 21, 23: config 5 at the shipped scale, the
+    # bag-replay, EuRoC and synthetic entry points and the pipelined system,
+    # each in a process of its own, on the card beside phases 14 and 22 ----
     full_data = streams["full"].get()
     log("lvi_full_stream", wait_seconds=round(streams["full"].waited_s, 1))
     shipped_inputs = write_shipped_inputs(full_data)
@@ -2983,7 +3350,8 @@ def run_phases(pool, phases, dev) -> int:
             phases.submit(bag_fixture_phase, dev),
             phases.submit(bag_shipped_phase, shipped_inputs, dev),
             phases.submit(euroc_phase, stream[1:], dev, vio_full_outcomes[0]),
-            phases.submit(synthetic_phase, dev)]
+            phases.submit(synthetic_phase, dev),
+            phases.submit(lvi_pipelined_phase, streams["parity"].get(), dev)]
 
     # ---- 18. the host tools: native library, PNG codec, exact LOAM pick ----
     host_tools_phase(stream[4][0], scans, dev)
@@ -2994,9 +3362,18 @@ def run_phases(pool, phases, dev) -> int:
     # ---- 14. config 5 at the parity scale ----
     par = lvi_parity_phase(streams["parity"], dev)
 
+    # ---- 22. the multi-device part at config 3's widths ----
+    md = multi_device_phase(cfg, scans, dev)
+
     (full, full_gated, full_rows), (_, bag_fix), (_, bag_ship, ship_rows), euroc_k, \
-        synthetic_k = [job.result() for job in jobs]
+        synthetic_k, pipe = [job.result() for job in jobs]
     compare_with_full(ship_rows, full_rows)
+    # phase 23 beside phase 14 (both beside the workers; the pipelined
+    # `image` handler covers stage T of frame k and stage E of frame k-1)
+    log("lvi_pipelined_vs_parity", **{f"{k}_{name}": round(r[k], 4) for name, r in
+                                      (("pipelined", pipe), ("parity", par))
+                                      for k in ("rtf", "lidar_ms_mean", "image_ms_mean",
+                                                "ate_m")})
     if "--loop" in sys.argv:
         lvi_loop_phase(streams["loop"], dev)
     for key in ("K1", "K2", "K3", "K4"):
@@ -3007,6 +3384,9 @@ def run_phases(pool, phases, dev) -> int:
         by_path[key]["bag_fixture"] = bag_fix[key]
         by_path[key]["bag_shipped"] = bag_ship[key]
         by_path[key]["synthetic_entry"] = synthetic_k[key]
+        by_path[key]["lvi_pipelined"] = pipe["launches"][key]
+        if key in md:
+            by_path[key]["multi_device_batch"] = md[key]
         if key in euroc_k:
             by_path[key]["euroc_entry"] = euroc_k[key]
     launches = {k: sum(v.values()) for k, v in by_path.items()}

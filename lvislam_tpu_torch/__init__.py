@@ -7,11 +7,13 @@ tensors, the device taken from the inputs (or passed explicitly where a state
 is created), ``NamedTuple`` states in place of pytrees, and Python loops and
 branches where JAX has ``lax.while_loop`` / ``lax.cond``.
 
-The slices ported so far are the LiDAR-inertial per-scan step
-(``models.lio.pipeline.lio_full_step`` / ``LioPipeline``) and the visual
-front end (``models.vio.feature_tracker.tracker_step`` / ``FeatureTracker``,
-with ``register_depth``). Their kernels are hand-written CUDA C++ for Hopper
-(``csrc/``), built with ``nvcc`` at first use:
+Everything of the JAX package but its batched fused replay is ported: the
+LiDAR-inertial per-scan step (``models.lio.pipeline``), the visual front end
+(``models.vio.feature_tracker``), the IMU side, the VIO estimator, the fused
+system (``models.pipeline.LviSystem``, pipelined over three devices too),
+the entry points and host tools, and the multi-device part (``parallel``).
+The kernels are hand-written CUDA C++ for Hopper (``csrc/``), built with
+``nvcc`` at first use:
 
 - K1 ``ops.knn_tail``      — voxel-hash candidate scoring + top-5;
 - K2 ``ops.gn_partials``   — LOAM coefficients + Gauss-Newton row partials;

@@ -57,12 +57,12 @@ POS_SCALE = 0.003  # m per quantum
 TIME_SCALE = 4e-6  # s per quantum
 
 
-def lio_full_step(state: mapping.LioMapState, packed: torch.Tensor, *,
-                  n_scan, horizon, min_range, max_range, edge_threshold,
-                  surf_threshold, surf_leaf, caps: mapping.LioCaps,
-                  params: mapping.LioParams, point_capacity: int,
-                  imu_capacity: int, exact_selection: bool = False):
-    """One LIS step on a packed int16 buffer (layout: ``pack_scan``)."""
+def scan_features(packed: torch.Tensor, *, n_scan, horizon, min_range, max_range,
+                  edge_threshold, surf_threshold, surf_leaf, caps: mapping.LioCaps,
+                  point_capacity: int, imu_capacity: int, exact_selection: bool = False):
+    """The front end of one LIS step on a packed int16 buffer (layout:
+    ``pack_scan``): (the scan's info dict for ``map_step``, its
+    ``FeatureResult``)."""
     P, M = point_capacity, imu_capacity
     pts = packed[: P * 6].reshape(6, P)
     imu = packed[P * 6: P * 6 + M * 8].view(torch.float32).reshape(M, 4)
@@ -98,9 +98,20 @@ def lio_full_step(state: mapping.LioMapState, packed: torch.Tensor, *,
         gps_pos=misc[17:20],
         gps_noise=misc[20:23],
         gps_use_elevation=misc[23] > 0.5,
+        do_loop=misc[15] > 0.5,
     )
+    return scan_info, feats
+
+
+def lio_full_step(state: mapping.LioMapState, packed: torch.Tensor, *,
+                  params: mapping.LioParams, **front):
+    """One LIS step on a packed int16 buffer (layout: ``pack_scan``): the
+    front end (``scan_features``, keywords `front`), ``map_step`` and, when
+    the buffer asks for it, the loop closure."""
+    scan_info, feats = scan_features(packed, **front)
+    caps = front["caps"]
     state, out = mapping.map_step(state, scan_info, feats, caps, params)
-    if host_bool((misc[15] > 0.5) & (state.kf_count > 1)):
+    if host_bool(scan_info["do_loop"] & (state.kf_count > 1)):
         with record_function("lio.loop_closure"):
             state, _ = mapping.loop_closure_step(state, caps, params)
     return state, out
@@ -223,6 +234,16 @@ class LioPipeline:
         self.state, out = lio_full_step(self.state, packed, **self._kw)
         self.trajectory.append((scan["stamp"], out.x6))
         return out
+
+    def features(self, scan: dict, imu_rel_time: np.ndarray, imu_gyro: np.ndarray,
+                 imu_rpy_init: np.ndarray | None, odom: dict | None = None,
+                 gps: dict | None = None):
+        """The front end alone on one scan (``scan_features``): its info
+        dict and ``FeatureResult`` on the device, the state untouched."""
+        buf = pack_scan(self.cfg, scan, imu_rel_time, imu_gyro, imu_rpy_init,
+                        odom=odom, gps=gps)
+        kw = {k: v for k, v in self._kw.items() if k != "params"}
+        return scan_features(torch.from_numpy(buf).to(self.device), **kw)
 
     def flush(self):
         """Every step has been issued already (no staged uploads); kept for

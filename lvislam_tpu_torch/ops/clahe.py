@@ -132,10 +132,11 @@ def tile_hist(img: torch.Tensor, tiles: int = 8, n_bins: int = 256) -> torch.Ten
     if hist_path(H, W, tiles, img.data_ptr()) == "vector":
         slabs = hist_slabs(H // tiles, tiles, _sm_count(img.device.index))
     lib = _kernels.library()
-    stream = torch.cuda.current_stream(img.device).cuda_stream
-    err = lib.lvt_clahe_hist(img.data_ptr(), hist.data_ptr(), H, W, tiles, n_bins, slabs,
-                             stream)
-    _kernels.check(err, "lvt_clahe_hist")
+    with torch.cuda.device(img.device):  # launch on the input's card
+        stream = torch.cuda.current_stream(img.device).cuda_stream
+        err = lib.lvt_clahe_hist(img.data_ptr(), hist.data_ptr(), H, W, tiles, n_bins, slabs,
+                                 stream)
+        _kernels.check(err, "lvt_clahe_hist")
     HIST_LAUNCHES += 1
     return hist
 
@@ -233,9 +234,10 @@ def apply_cdf(img: torch.Tensor, cdf: torch.Tensor, tiles: int = 8) -> torch.Ten
                   out.data_ptr()) == "vector":
         rows = APPLY_ROWS
     lib = _kernels.library()
-    stream = torch.cuda.current_stream(img.device).cuda_stream
-    err = lib.lvt_clahe_apply(img.data_ptr(), cdf.data_ptr(), out.data_ptr(),
-                              H, W, tiles, n_bins, rows, stream)
-    _kernels.check(err, "lvt_clahe_apply")
+    with torch.cuda.device(img.device):  # launch on the input's card
+        stream = torch.cuda.current_stream(img.device).cuda_stream
+        err = lib.lvt_clahe_apply(img.data_ptr(), cdf.data_ptr(), out.data_ptr(),
+                                  H, W, tiles, n_bins, rows, stream)
+        _kernels.check(err, "lvt_clahe_apply")
     APPLY_LAUNCHES += 1
     return out

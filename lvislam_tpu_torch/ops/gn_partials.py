@@ -135,10 +135,11 @@ def _launch(c_blocks, s_blocks, par):
         for pts, nbr, N in cls:
             ptrs += [pts.data_ptr() if N else None, nbr.data_ptr() if N else None, N]
         lib = _kernels.library()
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        _kernels.check(lib.lvt_gn_partials_pair(*ptrs, par.data_ptr(), rows.data_ptr(),
-                                                _TICKETS[dev].data_ptr(), out.data_ptr(),
-                                                stream), "lvt_gn_partials_pair")
+        with torch.cuda.device(dev):  # launch on the inputs' card
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            _kernels.check(lib.lvt_gn_partials_pair(*ptrs, par.data_ptr(), rows.data_ptr(),
+                                                    _TICKETS[dev].data_ptr(), out.data_ptr(),
+                                                    stream), "lvt_gn_partials_pair")
         LAUNCHES += 1
     # out: H row-major (36), g (6), then n_res's int32 bits
     return out[:36].view(6, 6), out[36:42], out[42:].view(torch.int32)[0]

@@ -103,8 +103,9 @@ def _launch(sets, k: int):
         if len(sets) == 1:
             ptrs += [None] * 5 + [0, 0]
         lib = _kernels.library()
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        _kernels.check(lib.lvt_knn_tail_pair(*ptrs, k, stream), "lvt_knn_tail_pair")
+        with torch.cuda.device(dev):  # launch on the inputs' card
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            _kernels.check(lib.lvt_knn_tail_pair(*ptrs, k, stream), "lvt_knn_tail_pair")
         LAUNCHES += 1
     return [(a[3], a[4]) for a in args]
 

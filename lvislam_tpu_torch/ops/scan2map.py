@@ -33,21 +33,30 @@ from . import voxel_hash as vh
 _BIG = 1e10
 
 
-def knn(query, query_valid, ref, ref_valid, k: int = 5):
+def knn(query, query_valid, ref, ref_valid, k: int = 5, chunk: int = 8192,
+        block_elems: int = 1 << 25):
     """Exact k-NN against the full reference set via the expanded squared
     distance |q|² + |r|² - 2 q·r; ties to the lowest index. Returns
-    (idx (Q,k), sqdist (Q,k)). Invalid reference points sit at +_BIG."""
+    (idx (Q,k), sqdist (Q,k)). Invalid reference points sit at +_BIG.
+
+    The query dimension runs in blocks of at most `block_elems` distances,
+    as the JAX function does; rows are independent, so the blocking changes
+    no value. `chunk` is accepted for the JAX signature and unused."""
     r_sq = torch.sum(ref * ref, dim=-1)
     r_sq = torch.where(ref_valid, r_sq, torch.full_like(r_sq, _BIG))
-    d = (torch.sum(query * query, dim=-1, keepdim=True) + r_sq[None, :]
-         - 2.0 * (query @ ref.T))
-    if k == 1:
-        idx = torch.argmin(d, dim=1, keepdim=True)  # first minimum
-        dist = torch.gather(d, 1, idx)
-    else:
-        srt = torch.sort(d, dim=1, stable=True)
-        dist, idx = srt.values[:, :k], srt.indices[:, :k]
-    return idx, torch.clamp(dist, min=0.0)
+    qb = max(1, min(query.shape[0], block_elems // max(ref.shape[0], 1)))
+    idx, dist = [], []
+    for q in torch.split(query, qb):
+        d = torch.sum(q * q, dim=-1, keepdim=True) + r_sq[None, :] - 2.0 * (q @ ref.T)
+        if k == 1:
+            i = torch.argmin(d, dim=1, keepdim=True)  # first minimum
+            idx.append(i)
+            dist.append(torch.gather(d, 1, i))
+        else:
+            srt = torch.sort(d, dim=1, stable=True)
+            idx.append(srt.indices[:, :k])
+            dist.append(srt.values[:, :k])
+    return torch.cat(idx), torch.clamp(torch.cat(dist), min=0.0)
 
 
 class Coeffs(NamedTuple):

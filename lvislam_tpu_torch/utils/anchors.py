@@ -23,7 +23,9 @@ asserts that it equals the stored value (``-s`` prints them):
 - ``EUROC_VIO`` (phase 20): ``tests/test_torch_euroc_entry.py -m slow -k
   anchor -s``;
 - ``SYNTHETIC_LVI`` (phase 21): ``tests/test_torch_synthetic_entry.py -m
-  slow -k anchor -s``.
+  slow -k anchor -s``;
+- ``LVI_PIPELINED`` (phase 23): ``tests/test_torch_pipelined_lvi.py -m slow
+  -k anchor -s``.
 
 ``config_sha256`` hashes a configuration so a stored value names the
 configuration that made it.
@@ -111,6 +113,26 @@ LVI_PARITY = {
     "config_sha256": "26927613758b82b6", "stream_sha256": "f8387e973b708dc3",
 }
 
+
+# The JAX pipelined `LviSystem` (`LviConfig.pipeline_devices`: LIO, tracker
+# and estimator on three virtual CPU devices, the estimator one frame behind)
+# on the CPU over the 12 s parity sequence with phase 14's JAX configuration,
+# 2 s then 10 s; `ate_one_ulp_m`: the same run with one input a float32 step
+# off (`tests/test_torch_synthetic_entry.ONE_ULP`), the JAX run's own spread.
+# `config_sha256` hashes the configuration with `pipeline_devices` cleared.
+LVI_PIPELINED = {'ate_m': 0.0940907684342307,
+                 'ate_one_ulp_m': {'gyro_up': 0.09053941030339074,
+                                   'acc_up': 0.0916639912450366,
+                                   'xyz_up': 0.08871107849432217,
+                                   'xyz_down': 0.09174086282720129},
+                 'init_frame': 11,
+                 'init_path': 'lidar_seed',
+                 'trajectory_points': 60,
+                 'vio_frames': 119,
+                 'failure_count': 0,
+                 'keyframes': 39,
+                 'config_sha256': '26927613758b82b6',
+                 'stream_sha256': 'f8387e973b708dc3'}
 
 # The JAX loop detector on the CPU over the revisit scene of
 # `tests/test_loop_detector.py` (`synthetic.loop_scene`: world seed 3,

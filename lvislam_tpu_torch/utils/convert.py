@@ -6,7 +6,9 @@ tree whose leaves go through ``np.asarray``), ``LioCaps``, ``LioParams``,
 ``CameraIntrinsics``, ``TrackerParams``, ``TrackerState``, and the IMU and
 VIO side's ``FusionState``, ``PreintState``, ``WindowState``, ``Prior``,
 ``FeatureTable``, ``VioState``, the loop detector's ``LoopCaps`` and
-``LoopDB``, the fused system's ``LviConfig`` and ``LviSystem``, the
+``LoopDB``, the fused system's ``LviConfig`` and ``LviSystem`` (the
+pipelined one too), batched LIO states (a leading B axis, on one device or
+over a mesh's ``batch`` slots), the
 calibration tool's ``CalibResult``, the ``PoseGraph`` that
 ``dense_information`` reads, the message dataclasses of ``core/messages``,
 and their parameter dataclasses into the port's objects on a given device,
@@ -62,6 +64,17 @@ def _tree(cls, src, device):
 def state_from_jax(jstate, device=None) -> mapping.LioMapState:
     """A JAX ``LioMapState`` -> the port's ``LioMapState`` on `device`."""
     return _tree(mapping.LioMapState, jstate, device)
+
+
+def batched_state_from_jax(jstate, device=None, mesh=None) -> mapping.LioMapState:
+    """A JAX batched ``LioMapState`` (every leaf with a leading B axis, as
+    ``parallel.batch_replay`` makes it) -> the port's on `device`, or with
+    `mesh` sharded over its ``batch`` slots."""
+    if mesh is None:
+        return state_from_jax(jstate, device)
+    from ..parallel import mesh as pmesh
+
+    return pmesh.put_tree(state_from_jax(jstate, "cpu"), mesh, pmesh.batch_sharding(mesh))
 
 
 def to_numpy(tree) -> dict:
@@ -199,36 +212,53 @@ def message_from_jax(jmsg, device=None):
                   for f in dataclasses.fields(cls)})
 
 
-def lvi_config_from_jax(jcfg) -> lvi.LviConfig:
+def lvi_config_from_jax(jcfg, pipeline_devices=None) -> lvi.LviConfig:
     """A JAX ``LviConfig`` -> the port's, every nested configuration
-    converted (`replay_batch` and the other fields as they are)."""
+    converted (`replay_batch` and the other fields as they are). The JAX
+    `pipeline_devices` are JAX devices: a pipelined configuration needs the
+    port's three in `pipeline_devices`."""
+    if (jcfg.pipeline_devices is None) != (pipeline_devices is None):
+        raise ValueError("pipeline_devices: give the port's three devices exactly when "
+                         "the JAX configuration is pipelined")
     return _dc(
         lvi.LviConfig, jcfg, lio=config_from_jax(jcfg.lio),
         fusion=fusion_params_from_jax(jcfg.fusion), vio_caps=vio_caps_from_jax(jcfg.vio_caps),
         vio_params=vio_params_from_jax(jcfg.vio_params), ba=ba_config_from_jax(jcfg.ba),
         tracker=tracker_params_from_jax(jcfg.tracker), camera=camera_from_jax(jcfg.camera),
         loop_caps=loop_caps_from_jax(jcfg.loop_caps),
+        pipeline_devices=pipeline_devices and tuple(pipeline_devices),
     )
 
 
-def lvi_system_from_jax(jsys, device=None, sampler=None) -> lvi.LviSystem:
-    """A JAX ``LviSystem`` (interactive path, no events pending) -> the
-    port's on `device`, carrying the device state (LIO map, fusion, tracker,
-    VIO, loop database, depth ring) and the host state (IMU buffers, the
-    fused odometry stream, the VIS odometry, the last fused state, frame
-    times, ring stamps and slot, td, the flags and counters)."""
+def lvi_system_from_jax(jsys, device=None, sampler=None,
+                        pipeline_devices=None) -> lvi.LviSystem:
+    """A JAX ``LviSystem`` (interactive or pipelined path, no events
+    pending) -> the port's on `device` or, pipelined, on the port's
+    `pipeline_devices`, carrying the device state (LIO map, fusion, tracker,
+    VIO, loop database, depth ring, each on its stage's device), the
+    pipelined stage-T output awaiting stage E, and the host state (IMU
+    buffers, the fused odometry stream, the VIS odometry, the last fused
+    state, frame times, ring stamps and slot, td, the flags and counters)."""
     import copy
 
-    sys_ = lvi.LviSystem(lvi_config_from_jax(jsys.cfg), device=device, sampler=sampler)
-    dev = sys_.device
-    sys_.lio.state = state_from_jax(jsys.lio.state, dev)
+    sys_ = lvi.LviSystem(lvi_config_from_jax(jsys.cfg, pipeline_devices),
+                         device=device, sampler=sampler)
+    d_lio, d_trk, d_vio = sys_._dev_lio, sys_._dev_trk, sys_._dev_vio
+    sys_.lio.state = state_from_jax(jsys.lio.state, d_lio)
     sys_.lio.scan_counter = jsys.lio.scan_counter
-    sys_.fusion = fusion_state_from_jax(jsys.fusion, dev)
-    sys_.tracker = tracker_state_from_jax(jsys.tracker, dev)
-    sys_.vio = vio_state_from_jax(jsys.vio, dev)
-    sys_.loop_db = loop_db_from_jax(jsys.loop_db, dev)
-    sys_.depth_clouds = _tensor(jsys.depth_clouds, dev)
-    sys_.depth_valid = _tensor(jsys.depth_valid, dev)
+    sys_.fusion = fusion_state_from_jax(jsys.fusion, d_lio)
+    sys_.tracker = tracker_state_from_jax(jsys.tracker, d_trk)
+    sys_.vio = vio_state_from_jax(jsys.vio, d_vio)
+    sys_.loop_db = loop_db_from_jax(jsys.loop_db, d_vio)
+    sys_.depth_clouds = _tensor(jsys.depth_clouds, d_trk)
+    sys_.depth_valid = _tensor(jsys.depth_valid, d_trk)
+    pend = getattr(jsys, "_pending_track", None)
+    if pend is not None:
+        sys_._pending_track = dict(
+            stamp=pend["stamp"], img=np.array(pend["img"], copy=True),
+            tout=_tree(ft.TrackerOutput, pend["tout"], d_trk),
+            depth=_tensor(pend["depth"], d_trk), rt=_tensor(pend["rt"], d_trk))
+    sys_._last_est_time = getattr(jsys, "_last_est_time", -1.0)
     host = ("imu_times", "imu_gyro", "imu_acc", "imu_rpy", "last_image_time",
             "last_lidar_time", "_last_map_time", "lidar_counter", "depth_stamps",
             "depth_slot", "_td", "_vio_initialized", "vins_odom", "last_gps", "lio_odoms",
@@ -242,7 +272,7 @@ def lvi_system_from_jax(jsys, device=None, sampler=None) -> lvi.LviSystem:
         sys_.imu_gyro_l = copy.deepcopy(jsys.imu_gyro_l)
         sys_.imu_acc_l = copy.deepcopy(jsys.imu_acc_l)
     for slot, img8 in getattr(jsys, "_dbg_kf_imgs", {}).items():
-        sys_._debug_keep(_tensor(img8, dev), slot)
+        sys_._debug_keep(_tensor(img8, d_vio), slot)
     sys_._vio_frame_count = int(np.asarray(jsys.vio.frame_count))
     sys_._fusion_initialized = bool(np.asarray(jsys.fusion.initialized))
     return sys_

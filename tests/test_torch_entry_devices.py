@@ -2,6 +2,8 @@
 with no device given they take ``cuda``, and without a CUDA device that
 raises instead of falling back to the CPU. ``device="cpu"`` works."""
 
+import dataclasses
+
 import pytest
 import torch
 
@@ -15,6 +17,7 @@ from lvislam_tpu_torch.models.vio.feature_tracker import FeatureTracker, tracker
 from lvislam_tpu_torch.models.vio.pipeline import VioRunner, VioRunnerConfig
 from lvislam_tpu_torch.core import messages
 from lvislam_tpu_torch.ops import ba, chessboard, preintegration
+from lvislam_tpu_torch.parallel import batch_replay, mesh
 from lvislam_tpu_torch.scripts import run_euroc_vio, run_synthetic_lvi
 from lvislam_tpu_torch.utils import synthetic
 
@@ -51,6 +54,11 @@ BUILDERS = {
     "navstate_identity": lambda **kw: preintegration.navstate_identity(**kw).quat,
     "consistent_window": lambda **kw: synthetic.consistent_window(2, 4, **kw)[2].Ps,
     "LviSystem": lambda **kw: LviSystem(LVI_CFG, **kw).depth_clouds,
+    "LviSystem(pipeline_devices)": lambda device=None: LviSystem(dataclasses.replace(
+        LVI_CFG, pipeline_devices=(device,) * 3)).vio.ws.Ps,
+    "make_mesh": lambda device=None: torch.empty(0, device=mesh.make_mesh(
+        devices=None if device is None else [device] * 2).devices[0, 0]),
+    "batched_lio_init": lambda **kw: batch_replay.batched_lio_init(CAPS, 2, **kw).x6,
     "db_init": lambda **kw: loop_detector.db_init(loop_detector.LoopCaps(
         max_keyframes=4, extra_points=8, vocab_words=16), **kw).bags,
     "validity_mask": lambda **kw: messages.validity_mask(2, 4, **kw),

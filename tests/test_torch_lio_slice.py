@@ -300,7 +300,8 @@ def test_port_imports_no_jax():
         "        'utils.bag', 'utils.jpeg', 'utils.checkpoint', 'utils.bag_writer',\n"
         "        'scripts.run_rosbag_lvi', 'core.messages', 'utils.profiling', 'utils.png',\n"
         "        'utils.debugviz', 'utils.native', 'ops.chessboard', 'ops.calibration',\n"
-        "        'scripts.run_euroc_vio', 'scripts.run_synthetic_lvi']\n"
+        "        'scripts.run_euroc_vio', 'scripts.run_synthetic_lvi', 'parallel.mesh',\n"
+        "        'parallel.sharded_knn', 'parallel.sharded_scan2map', 'parallel.batch_replay']\n"
         "missing = [m for m in need if 'lvislam_tpu_torch.' + m not in sys.modules]\n"
         "assert not missing, missing\n"
         "print('clean', len([m for m in sys.modules if m.startswith('lvislam_tpu_torch')]))\n"

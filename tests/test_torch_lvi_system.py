@@ -372,15 +372,27 @@ def test_loop_detect_points_and_keyframe_insert(jax_run, monkeypatch):
 
 
 def test_unported_options_raise(tmp_path):
-    """`pipeline_devices` would change what the caller gets: it raises,
-    naming the roadmap item, instead of being ignored. `debug_dir` is ported
-    now (`utils/debugviz.py`): a system with it builds."""
+    """Both options that once raised are ported: `pipeline_devices` builds
+    and places each stage's state on its device (the image handler becomes
+    the pipelined one), and `debug_dir` builds (`utils/debugviz.py`). What
+    still raises: `device` beside `pipeline_devices`, and an unknown device
+    name."""
     from lvislam_tpu_torch.models.pipeline import LviConfig, LviSystem
 
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        LviSystem(LviConfig(pipeline_devices=("a", "b", "c")), device="cpu")
+    with pytest.raises(ValueError, match="pipeline_devices"):
+        LviSystem(LviConfig(pipeline_devices=("cpu",) * 3, vocab_path=None), device="cpu")
+    with pytest.raises(RuntimeError):
+        LviSystem(LviConfig(pipeline_devices=("a", "b", "c"), vocab_path=None))
+    sys_ = LviSystem(LviConfig(pipeline_devices=("cpu", torch.device("cpu"), "cpu"),
+                               vocab_path=None))
+    assert sys_._pipelined and sys_._pending_track is None
+    cpu = torch.device("cpu")
+    assert (sys_._dev_lio, sys_._dev_trk, sys_._dev_vio) == (cpu, cpu, cpu)
+    assert sys_.lio.state.x6.device == sys_.fusion.pos.device == sys_._dev_lio
+    assert sys_.tracker.pts.device == sys_.depth_clouds.device == sys_._dev_trk
+    assert sys_.vio.ws.Ps.device == sys_.loop_db.bags.device == sys_._dev_vio
     sys_ = LviSystem(LviConfig(debug_dir=str(tmp_path / "dbg"), vocab_path=None), device="cpu")
-    assert sys_.cfg.debug_dir and sys_._dbg_kf_imgs is None
+    assert sys_.cfg.debug_dir and sys_._dbg_kf_imgs is None and not sys_._pipelined
 
 
 def test_debug_dir_hooks_from_carried_state(parity_data, jax_run, tmp_path):
