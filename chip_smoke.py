@@ -22,6 +22,10 @@ Phases, one line each:
    syncs per scan, keyframes, the trajectory's sha256, and kernel launch
    counts: one K2 launch per GN iteration, one K1 launch per refresh.
 4. determinism: a second replay must reproduce the trajectory bit for bit.
+3b. lio_upload_batch: the same replay at ``upload_batch = 8``
+   (``bench.py:231``): the trajectory's sha256 equal to phase 3's,
+   ceil(91 / 8) uploads (the pipeline's count of its copies); ms a scan
+   beside phase 3's.
 5. CLAHE kernels K3 (tile_hist) and K4 (apply_cdf) from
    ``lvislam_tpu_torch/csrc/clahe.cu`` against their plain versions, bit for
    bit, on a rendered MEI 576x1024 frame and a uniform-random image (the
@@ -107,10 +111,10 @@ Phases, one line each:
    (if not, a second run with mapRebuildEvery=1 is printed beside it and
    gated). The streams of phases 14 and 15 are raycast by worker processes
    while phases 1-12 run.
-Phases 15, 16, 17, 20, 21 and 23 run in six spawned processes of their
-own, on the card, while the main process runs phases 18, 19, 14 and 22
-(every phase is host-bound and the card mostly idle; so the host times of
-phases 14-23 are taken with seven processes on the card):
+Phases 15, 16, 17, 20, 21, 23, 24 and 25 run in eight spawned processes of
+their own, on the card, while the main process runs phases 18, 19, 14 and
+22 (every phase is host-bound and the card mostly idle; so the host times
+of phases 14-25 are taken with nine processes on the card):
 
 16. bag_fixture: the bag-replay entry point (``python -m
    lvislam_tpu_torch.scripts.run_rosbag_lvi``, called in-process on the
@@ -203,6 +207,24 @@ depth overlays at that stride.
    RTF and handler ms beside phase 14's (the pipelined ``image`` handler
    covers stage T of frame k and stage E of frame k-1).
 
+24. lvi_replay (a spawned process): phase 14's configuration with the
+   batched fused replay (``replay_batch = 16``, ``bench.py:539``) over the
+   same 12 s stream, 2 s warm and 10 s timed: the interactive path until
+   the VIO is up, then every 16 events one upload, one ``replay_batch_step``
+   and one deferred readback. Gates: the replay activated and shipped
+   batches; one upload and one readback a batch; every staged event came
+   back; VIO initialized, 0 failures; aligned ATE <= LVI_BAND x the worst
+   JAX replay reading (``utils/anchors.LVI_REPLAY``: its own and four
+   one-ulp runs); the configuration (kernels aside) and stream hashes the
+   anchor's; the first 4 s bit-identical on repeat. Reports RTF, handler ms,
+   host syncs and K1 launches a scan event and a frame event.
+25. lvi_replay_full (a spawned process): phase 15's configuration with
+   ``replay_batch = 16`` (``bench.py:733``), 2 s warm, 5 s timed. Gates: the
+   replay's as in 24; K1-K4 each launched inside the replay, K3 = K4 = the
+   frame events; loop-database inserts = VIO keyframes after
+   initialization; ATE <= 0.10 m. ``[lvi_replay_vs_parity]`` and
+   ``[lvi_replay_full_vs_full]`` print 24 and 25 beside 14 and 15.
+
 ``--loop`` adds the 38 s revisit arm of ``bench.py:770-887`` on the parity
 configuration (192 keyframes, 16 loop slots): at least one loop factor.
 
@@ -278,6 +300,9 @@ LVI_WARM_S, LVI_PARITY_S, LVI_REPEAT_S, LVI_FULL_S, LVI_LOOP_S = 2.0, 12.0, 4.0,
 # NOTES r5 measured on the JAX side (0.0904-0.0961 m)
 LVI_BAND = 1.05
 LVI_FULL_ATE_M = 0.10  # an absolute bound of the shipped-scale sequence
+# phases 3b, 24, 25: the LIO batched upload (`bench.py:231`) and the batched
+# fused replay (`bench.py:539`, `:733`)
+UPLOAD_BATCH, REPLAY_BATCH = 8, 16
 STREAM_WORKERS = 4  # raycasting processes for phases 13-15
 
 
@@ -628,6 +653,46 @@ def replay(cfg, scans, dev):
         iters.append(out.gn_iters)
     return (pipe.trajectory_array(), times, syncs, int(pipe.state.kf_count),
             torch.stack(iters).cpu().numpy().astype(int))
+
+
+def lio_upload_batch_phase(cfg, scans, dev, ref_sha: str, ref_ms: float) -> dict:
+    """Phase 3b: phase 3's replay at `upload_batch = UPLOAD_BATCH`. Gates:
+    the trajectory's sha256 equal to phase 3's; ceil(N_SCANS / UPLOAD_BATCH)
+    uploads (the pipeline's own count of its host-to-device copies). Prints
+    ms a scan (the run's wall, flush included, over its scans) beside phase
+    3's. The JAX package's dispatch modes (`async_dispatch`,
+    `pipelined_uploads`) select nothing here: one run covers them. Returns
+    the run's K1 / K2 launches."""
+    import math
+
+    import torch
+
+    from lvislam_tpu_torch.models.lio.pipeline import LioPipeline
+    from lvislam_tpu_torch.ops import gn_partials as gnp
+    from lvislam_tpu_torch.ops import knn_tail as kt
+
+    k0 = (kt.LAUNCHES, gnp.LAUNCHES)
+    want = math.ceil(len(scans) / UPLOAD_BATCH)
+    pipe = LioPipeline(dataclasses.replace(cfg, upload_batch=UPLOAD_BATCH), device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for s in scans:
+        pipe.process_scan(s[0], s[1], s[2], s[3])
+    traj = pipe.trajectory_array()  # flushes, then one readback
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    sha = sha256(traj)
+    log("lio_upload_batch", upload_batch=UPLOAD_BATCH, scans=len(scans),
+        uploads=pipe.uploads, uploads_expected=want,
+        batch_entries=sum(isinstance(t, tuple) for t, _ in pipe.trajectory),
+        ms_per_scan=round(1e3 * wall / len(scans), 3), phase3_ms_per_scan=round(ref_ms, 3),
+        trajectory_sha256=sha, phase3_sha256=ref_sha, bit_equal=sha == ref_sha)
+    if sha != ref_sha:
+        raise AssertionError(f"lio_upload_batch: trajectory {sha} is not phase 3's {ref_sha}")
+    if pipe.uploads != want:
+        raise AssertionError(f"lio_upload_batch: {pipe.uploads} uploads for {len(scans)} "
+                             f"scans at {UPLOAD_BATCH} a batch ({want})")
+    return {"K1": kt.LAUNCHES - k0[0], "K2": gnp.LAUNCHES - k0[1]}
 
 
 def profile_steady(cfg, scans, dev, n_prof: int):
@@ -1857,17 +1922,21 @@ def watch_system(sys_):
     on_lidar, on_image, lidar_seed = sys_._on_lidar, getattr(sys_, image_name), sys_._lidar_seed
     seeded = [False]
 
+    # an event the batched replay staged (`replay_batch` > 1) is not a
+    # processed one here: `watch_replay` records the replay's events
+    staged = lambda: sys_.replay_counts["staged"]
+
     def lidar(stamp, scan):
-        n0, c0 = len(sys_.trajectory), counters()
+        n0, c0, s0 = len(sys_.trajectory), counters(), staged()
         on_lidar(stamp, scan)
-        if len(sys_.trajectory) > n0:
+        if len(sys_.trajectory) > n0 and staged() == s0:
             rec["scans"].append((stamp, *[b - a for a, b in zip(c0, counters())]))
 
     def image(stamp, msg):
-        n0, c0 = sys_.vio_frames, counters()
+        n0, c0, s0 = sys_.vio_frames, counters(), staged()
         seeded[0] = False
         on_image(stamp, msg)
-        if sys_.vio_frames > n0:
+        if sys_.vio_frames > n0 and staged() == s0:
             s = sys_.frame_summary
             rec["frames"].append((stamp, *[b - a for a, b in zip(c0, counters())],
                                   seeded[0], bool(s[17] > 0.5), bool(s[18] > 0.5),
@@ -3117,6 +3186,206 @@ def lvi_pipelined_phase(data, dev):
     return dict(r, rtf=(LVI_PARITY_S - LVI_WARM_S) / wall)
 
 
+def watch_replay(sys_):
+    """Instrument the batched replay of a fused system: per event of
+    `replay_batch_step` (its branch), the host syncs and K1-K4 launches
+    inside it; per frame output the host drained, its initialized and
+    keyframe flags. Returns the record."""
+    from lvislam_tpu_torch.core import hostsync
+    from lvislam_tpu_torch.models import replay as rp
+    from lvislam_tpu_torch.ops import clahe
+    from lvislam_tpu_torch.ops import gn_partials as gnp
+    from lvislam_tpu_torch.ops import knn_tail as kt
+
+    rec = {"scan": [], "frame": [], "outputs": [],
+           "branches": (rp._scan_branch, rp._frame_branch)}
+    counters = lambda: (hostsync.COUNT, kt.LAUNCHES, gnp.LAUNCHES, clahe.HIST_LAUNCHES,
+                        clahe.APPLY_LAUNCHES)
+
+    def counted(kind, branch):
+        def run(*a, **kw):
+            c0 = counters()
+            out = branch(*a, **kw)
+            rec[kind].append([b - a for a, b in zip(c0, counters())])
+            return out
+        return run
+
+    # the worker looks the branches up in the module at each event
+    rp._scan_branch = counted("scan", rp._scan_branch)
+    rp._frame_branch = counted("frame", rp._frame_branch)
+    take = sys_._take_outputs
+
+    def outputs(meta, o):
+        for (kind, _, _), row in zip(meta, o):
+            if kind == rp.KIND_FRAME:
+                s = row[1 + rp._SCAN_OUT:]
+                rec["outputs"].append((bool(s[17] > 0.5), bool(s[18] > 0.5)))
+        return take(meta, o)
+
+    sys_._take_outputs = outputs
+    return rec
+
+
+def unwatch_replay(rec):
+    """Put the replay's branches back (`watch_replay` wrapped them)."""
+    from lvislam_tpu_torch.models import replay as rp
+
+    rp._scan_branch, rp._frame_branch = rec["branches"]
+
+
+def run_replay(cfg, data, dev, warm_s: float, end_s: float):
+    """`run_lvi` with the replay's events recorded: (system, interactive
+    record, replay record, wall s of the timed `run`)."""
+    import torch
+
+    from lvislam_tpu_torch.models.pipeline import LviSystem
+    from lvislam_tpu_torch.utils import synthetic as syn
+
+    sync = torch.cuda.synchronize if torch.device(dev).type == "cuda" else (lambda: None)
+    sys_ = LviSystem(cfg, device=dev)
+    rec = watch_system(sys_)
+    rrec = watch_replay(sys_)
+    try:
+        syn.feed_lvi(sys_, data, 0.0, warm_s)
+        sys_.run()
+        syn.feed_lvi(sys_, data, warm_s, end_s)
+        sync()
+        t0 = time.perf_counter()
+        sys_.run()
+        sync()
+        wall = time.perf_counter() - t0
+    finally:
+        unwatch_replay(rrec)
+    return sys_, rec, rrec, wall
+
+
+def replay_summary(sys_, rec, rrec, traj, t_lo: float, seconds: float, wall: float) -> dict:
+    """`lvi_summary` of a replay run, and the replay's own numbers: batches,
+    uploads and readbacks a batch, events staged and returned, host syncs
+    and K1-K4 launches a scan event and a frame event, and the keyframes
+    after initialization (interactive frames and replay outputs)."""
+    import numpy as np
+
+    r = lvi_summary(sys_, rec, traj, t_lo)
+    # the timed part is all replay events: the per-event numbers below
+    # replace the interactive path's per-scan and per-frame ones
+    for k in ("scans_timed", "frames_timed", "syncs_per_scan", "syncs_per_frame",
+              "K1_per_scan", "K2_per_scan", "K3_per_frame", "K4_per_frame"):
+        del r[k]
+    rc = sys_.replay_counts
+    per = lambda rows, i: float(np.mean([x[i] for x in rows])) if rows else 0.0
+    tot = lambda rows, i: int(sum(x[i] for x in rows))
+    ev = rrec["scan"] + rrec["frame"]
+    r.update(
+        rtf=(seconds - t_lo) / wall, wall_s=wall, activated=sys_._replay_statics is not None,
+        batches=rc["batches"], uploads_per_batch=rc["uploads"] / max(rc["batches"], 1),
+        readbacks_per_batch=rc["readbacks"] / max(rc["batches"], 1),
+        events_staged=rc["staged"], events_returned=rc["returned"],
+        stranded=len(sys_._ev_rows) + len(sys_._rp_pending),
+        scan_events=len(rrec["scan"]), frame_events=len(rrec["frame"]),
+        syncs_per_scan_event=per(rrec["scan"], 0), syncs_per_frame_event=per(rrec["frame"], 0),
+        K1_per_scan_event=per(rrec["scan"], 1), K2_per_scan_event=per(rrec["scan"], 2),
+        K3_replay=tot(ev, 3), K4_replay=tot(ev, 4), K1_replay=tot(ev, 1), K2_replay=tot(ev, 2),
+        keyframes_after_init=(sum(1 for f in rec["frames"] if f[7] and f[8])
+                              + sum(1 for ok, kf in rrec["outputs"] if ok and kf)),
+        loop_inserts=int(sys_.loop_db.count),
+    )
+    for k, i in (("K1", 1), ("K2", 2), ("K3", 3), ("K4", 4)):
+        r["launches"][k] += tot(ev, i)
+    return r
+
+
+def check_replay(name: str, r: dict):
+    """The gates phases 24 and 25 share: the replay activated and shipped
+    batches, one upload and one readback a batch, every staged event came
+    back, the VIO initialized with no failure."""
+    if not (r["activated"] and r["batches"] > 0 and r["scan_events"] > 0 and r["frame_events"] > 0):
+        raise AssertionError(f"{name}: the replay did not run ({r['batches']} batches, "
+                             f"{r['scan_events']} scan / {r['frame_events']} frame events)")
+    if not (r["uploads_per_batch"] == r["readbacks_per_batch"] == 1.0):
+        raise AssertionError(f"{name}: {r['uploads_per_batch']} uploads and "
+                             f"{r['readbacks_per_batch']} readbacks a batch")
+    if r["events_returned"] != r["events_staged"] or r["stranded"]:
+        raise AssertionError(f"{name}: {r['events_staged']} events staged, "
+                             f"{r['events_returned']} returned, {r['stranded']} stranded")
+    if not (r["init_frame"] and r["failure_count"] == 0):
+        raise AssertionError(f"{name}: VIO init frame {r['init_frame']}, "
+                             f"failures {r['failure_count']}")
+
+
+def lvi_replay_phase(data, dev):
+    """Phase 24: phase 14's configuration with `replay_batch = REPLAY_BATCH`
+    over the 12 s parity stream, 2 s warm then 10 s timed; gated against the
+    JAX replay's clean-CPU readings (`anchors.LVI_REPLAY`); the first 4 s
+    repeated bit for bit. Returns its summary."""
+    import numpy as np
+
+    from lvislam_tpu_torch.utils import anchors
+    from lvislam_tpu_torch.utils import synthetic as syn
+
+    ref = anchors.LVI_REPLAY
+    cfg = dataclasses.replace(lvi_parity_config(), replay_batch=REPLAY_BATCH)
+    cfg_cpu = anchors.config_sha256(dataclasses.replace(lvi_parity_config(kernels=False),
+                                                        replay_batch=REPLAY_BATCH))
+    seq = syn.lvi_sequence_sha256(data)
+    if cfg_cpu != ref["config_sha256"] or seq != ref["stream_sha256"]:
+        raise AssertionError(f"lvi_replay: config {cfg_cpu} / stream {seq} are not the "
+                             f"anchor's ({ref['config_sha256']} / {ref['stream_sha256']})")
+    traj = syn.figure8_trajectory(scale=3.0, period=30.0)
+    sys_, rec, rrec, wall = run_replay(cfg, data, dev, LVI_WARM_S, LVI_PARITY_S)
+    r = replay_summary(sys_, rec, rrec, traj, LVI_WARM_S, LVI_PARITY_S, wall)
+    worst = max(ref["ate_m"], *ref["ate_one_ulp_m"].values())
+    limit = LVI_BAND * worst
+    log("lvi_replay", seconds=LVI_PARITY_S, timed_s=LVI_PARITY_S - LVI_WARM_S,
+        replay_batch=REPLAY_BATCH, ate_limit_m=round(limit, 5), jax_ate_m=round(ref["ate_m"], 5),
+        jax_worst_ate_m=round(worst, 5), jax_init_frame=ref["init_frame"],
+        jax_vio_frames=ref["vio_frames"], config_sha256=anchors.config_sha256(cfg),
+        cpu_config_sha256=cfg_cpu, stream_sha256=seq, **fmt_run(r))
+    check_replay("lvi_replay", r)
+    if not r["ate_m"] <= limit:
+        raise AssertionError(f"lvi_replay: ATE {r['ate_m']:.4f} m over {limit:.4f} m")
+    sys2, _, _, _ = run_replay(cfg, data, dev, LVI_WARM_S, LVI_REPEAT_S)
+    rows = lambda s: np.stack([np.r_[t, x6] for t, x6 in s.trajectory if t < LVI_REPEAT_S])
+    a, b = rows(sys_), rows(sys2)
+    log("lvi_replay_determinism", seconds=LVI_REPEAT_S, rows=len(b), sha256=sha256(b),
+        identical=bool(np.array_equal(a, b)))
+    if not np.array_equal(a, b):
+        raise AssertionError("lvi_replay determinism: the first 4 s differ")
+    return r
+
+
+def lvi_replay_full_phase(data, dev):
+    """Phase 25: phase 15's configuration (the shipped scale) with
+    `replay_batch = REPLAY_BATCH` (`bench.py:733`), 2 s warm then 5 s timed.
+    Gates: the replay's (`check_replay`); K1-K4 each launched inside the
+    replay, K3 = K4 = the frame events; loop-database inserts = VIO
+    keyframes after initialization; ATE <= LVI_FULL_ATE_M. Returns its
+    summary."""
+    from lvislam_tpu_torch.utils import synthetic as syn
+
+    traj = syn.figure8_trajectory(scale=3.0, period=30.0)
+    cfg = dataclasses.replace(lvi_full_config(), replay_batch=REPLAY_BATCH)
+    sys_, rec, rrec, wall = run_replay(cfg, data, dev, LVI_WARM_S, LVI_FULL_S)
+    r = replay_summary(sys_, rec, rrec, traj, LVI_WARM_S, LVI_FULL_S, wall)
+    r["loops"] = int(sys_.lio.state.n_loops)
+    log("lvi_replay_full", seconds=LVI_FULL_S, timed_s=LVI_FULL_S - LVI_WARM_S,
+        replay_batch=REPLAY_BATCH, ate_limit_m=LVI_FULL_ATE_M, **fmt_run(r))
+    check_replay("lvi_replay_full", r)
+    if min(r["K1_replay"], r["K2_replay"], r["K3_replay"], r["K4_replay"]) <= 0:
+        raise AssertionError(f"lvi_replay_full: a kernel was not launched inside the replay "
+                             f"(K1-K4 {r['K1_replay']}, {r['K2_replay']}, {r['K3_replay']}, "
+                             f"{r['K4_replay']})")
+    if not r["K3_replay"] == r["K4_replay"] == r["frame_events"]:
+        raise AssertionError(f"lvi_replay_full: K3 / K4 {r['K3_replay']} / {r['K4_replay']} "
+                             f"for {r['frame_events']} frame events")
+    if r["loop_inserts"] != r["keyframes_after_init"]:
+        raise AssertionError(f"lvi_replay_full: {r['loop_inserts']} loop-database inserts for "
+                             f"{r['keyframes_after_init']} keyframes after initialization")
+    if not r["ate_m"] <= LVI_FULL_ATE_M:
+        raise AssertionError(f"lvi_replay_full: ATE {r['ate_m']:.4f} m over {LVI_FULL_ATE_M} m")
+    return r
+
+
 def main() -> int:
     import torch
 
@@ -3142,14 +3411,14 @@ def main() -> int:
 
 
 def phase_pool():
-    """Six spawned processes (`phase_worker_init`) for phases 15, 16, 17,
-    20, 21 and 23, which run on the card while the main process runs 18, 19,
-    14 and 22: every phase is host-bound and the card is mostly idle, so the
-    script's time stays under its limit on a slow host."""
+    """Eight spawned processes (`phase_worker_init`) for phases 15, 16, 17,
+    20, 21, 23, 24 and 25, which run on the card while the main process runs
+    18, 19, 14 and 22: every phase is host-bound and the card is mostly
+    idle, so the script's time stays under its limit on a slow host."""
     import multiprocessing
     from concurrent.futures import ProcessPoolExecutor
 
-    return ProcessPoolExecutor(6, mp_context=multiprocessing.get_context("spawn"),
+    return ProcessPoolExecutor(8, mp_context=multiprocessing.get_context("spawn"),
                                initializer=phase_worker_init, initargs=(T_START,))
 
 
@@ -3235,6 +3504,10 @@ def run_phases(pool, phases, dev) -> int:
         raise AssertionError("determinism: second replay differs "
                              f"(max {np.abs(traj1 - traj2).max():.3e})")
     log("determinism", identical=True)
+
+    # ---- 3b. the same replay at the bench's upload_batch ----
+    batched_k = lio_upload_batch_phase(cfg, scans, dev, sha256(traj1),
+                                       1e3 * float(np.sum(times)) / N_SCANS)
     n_prof = int(sys.argv[sys.argv.index("--profile") + 1]) if "--profile" in sys.argv else 0
     if n_prof:
         profile_steady(cfg, scans, dev, n_prof)
@@ -3351,7 +3624,9 @@ def run_phases(pool, phases, dev) -> int:
             phases.submit(bag_shipped_phase, shipped_inputs, dev),
             phases.submit(euroc_phase, stream[1:], dev, vio_full_outcomes[0]),
             phases.submit(synthetic_phase, dev),
-            phases.submit(lvi_pipelined_phase, streams["parity"].get(), dev)]
+            phases.submit(lvi_pipelined_phase, streams["parity"].get(), dev),
+            phases.submit(lvi_replay_phase, streams["parity"].get(), dev),
+            phases.submit(lvi_replay_full_phase, full_data, dev)]
 
     # ---- 18. the host tools: native library, PNG codec, exact LOAM pick ----
     host_tools_phase(stream[4][0], scans, dev)
@@ -3366,7 +3641,7 @@ def run_phases(pool, phases, dev) -> int:
     md = multi_device_phase(cfg, scans, dev)
 
     (full, full_gated, full_rows), (_, bag_fix), (_, bag_ship, ship_rows), euroc_k, \
-        synthetic_k, pipe = [job.result() for job in jobs]
+        synthetic_k, pipe, rep24, rep25 = [job.result() for job in jobs]
     compare_with_full(ship_rows, full_rows)
     # phase 23 beside phase 14 (both beside the workers; the pipelined
     # `image` handler covers stage T of frame k and stage E of frame k-1)
@@ -3374,6 +3649,15 @@ def run_phases(pool, phases, dev) -> int:
                                       (("pipelined", pipe), ("parity", par))
                                       for k in ("rtf", "lidar_ms_mean", "image_ms_mean",
                                                 "ate_m")})
+    # phases 24 and 25 beside 14 and 15 (each in its own process, at other
+    # times): the replay's RTF, handler ms and host syncs an event
+    for name, a, b in (("lvi_replay_vs_parity", rep24, par), ("lvi_replay_full_vs_full", rep25, full)):
+        log(name, **{f"{k}_{tag}": round(r[k], 4) for tag, r in (("replay", a), ("interactive", b))
+                     for k in ("rtf", "lidar_ms_mean", "image_ms_mean", "ate_m")},
+            syncs_per_scan_event=round(a["syncs_per_scan_event"], 3),
+            syncs_per_frame_event=round(a["syncs_per_frame_event"], 3),
+            syncs_per_scan_interactive=round(b["syncs_per_scan"], 3),
+            syncs_per_frame_interactive=round(b["syncs_per_frame"], 3))
     if "--loop" in sys.argv:
         lvi_loop_phase(streams["loop"], dev)
     for key in ("K1", "K2", "K3", "K4"):
@@ -3385,6 +3669,10 @@ def run_phases(pool, phases, dev) -> int:
         by_path[key]["bag_shipped"] = bag_ship[key]
         by_path[key]["synthetic_entry"] = synthetic_k[key]
         by_path[key]["lvi_pipelined"] = pipe["launches"][key]
+        by_path[key]["lvi_replay"] = rep24["launches"][key]
+        by_path[key]["lvi_replay_full"] = rep25["launches"][key]
+        if key in batched_k:
+            by_path[key]["lio_upload_batch"] = batched_k[key]
         if key in md:
             by_path[key]["multi_device_batch"] = md[key]
         if key in euroc_k:

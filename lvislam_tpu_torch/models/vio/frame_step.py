@@ -12,7 +12,10 @@ and `process_image`, and returns a 21-float summary for the one readback.
 
 JAX's ``lax.cond(imu_n > 0, ...)`` is a host branch on the count the host
 packed. The estimator's window fill comes from the caller's host copy
-(`frame_count`), as `VioRunner` passes it.
+(`frame_count`), as `VioRunner` passes it. The fused replay
+(``models/replay.py``) keeps the ring's stamps and the vins_world ->
+vins_body TF on the device: ``frame_step``'s `depth_stamps` and
+`body_override` replace the packed freshness mask and TF.
 
 The pipelined two-stage variant splits the frame as the reference's two
 processes do (`feature_tracker_node.cpp:98-270` publishes,
@@ -177,6 +180,10 @@ def frame_step(
     imu_n: int,  # the IMU count the host packed
     seed_available: bool,  # whether the host packed a seed
     sampler: ft.Sampler | None = None,  # RANSAC draws (tracker, estimator)
+    depth_stamps: torch.Tensor | None = None,  # (S,) ring stamps on the device:
+    # the 5 s freshness mask is computed here instead of packed
+    body_override=None,  # (avail, trans(3), quat(4)) on the device, replacing
+    # the packed vins_world -> vins_body TF
 ):
     """Returns (tracker', vio', tout, depth, summary (21,) f32, frame_count'):
     summary = [pos(3), quat(4), vel(3), ba(3), bg(3), td, initialized,
@@ -187,9 +194,12 @@ def frame_step(
     M, W1, nf, L = _sizes(caps, H, W, S)
     f = buf[H * W // 2:].view(torch.float32)
     misc = f[M * 7: M * 7 + _MISC]
+    fresh = f[M * 7 + _MISC: M * 7 + _MISC + S] > 0.5
+    if depth_stamps is not None:
+        fresh = depth_stamps > misc[0] - 5.0
+    body = (misc[2] > 0.5, misc[3:6], misc[6:10]) if body_override is None else body_override
     tracker2, tout, depth = _track(
-        tracker, _unpack_image(buf, H, W), misc[0],
-        f[M * 7 + _MISC: M * 7 + _MISC + S] > 0.5, misc[2] > 0.5, misc[3:6], misc[6:10],
+        tracker, _unpack_image(buf, H, W), misc[0], fresh, *body,
         depth_clouds, depth_valid, tparams, cam, use_depth, sampler)
     rt = None
     if rolling_shutter_tr > 0:

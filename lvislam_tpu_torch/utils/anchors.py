@@ -25,7 +25,9 @@ asserts that it equals the stored value (``-s`` prints them):
 - ``SYNTHETIC_LVI`` (phase 21): ``tests/test_torch_synthetic_entry.py -m
   slow -k anchor -s``;
 - ``LVI_PIPELINED`` (phase 23): ``tests/test_torch_pipelined_lvi.py -m slow
-  -k anchor -s``.
+  -k anchor -s``;
+- ``LVI_REPLAY`` (phase 24): ``tests/test_torch_replay.py -m slow -k anchor
+  -s``.
 
 ``config_sha256`` hashes a configuration so a stored value names the
 configuration that made it.
@@ -133,6 +135,28 @@ LVI_PIPELINED = {'ate_m': 0.0940907684342307,
                  'keyframes': 39,
                  'config_sha256': '26927613758b82b6',
                  'stream_sha256': 'f8387e973b708dc3'}
+
+
+# The JAX `LviSystem` with the bench's batched fused replay
+# (`replay_batch = 16`, `bench.py:539`) and phase 14's JAX configuration on
+# the CPU over the 12 s parity sequence, 2 s then 10 s (the replay takes over
+# once the VIO has initialized); `ate_one_ulp_m`: the same run with one input
+# a float32 step off (`tests/test_torch_synthetic_entry.ONE_ULP`), the JAX
+# run's own spread. `config_sha256` hashes the configuration with its
+# `replay_batch`.
+LVI_REPLAY = {'ate_m': 0.09139479536837432,
+              'ate_one_ulp_m': {'gyro_up': 0.090751473630107,
+                                'acc_up': 0.09092723261539186,
+                                'xyz_up': 0.092440758548076,
+                                'xyz_down': 0.09174556161519232},
+              'init_frame': 11,
+              'init_path': 'lidar_seed',
+              'trajectory_points': 60,
+              'vio_frames': 119,
+              'failure_count': 0,
+              'keyframes': 39,
+              'config_sha256': '85300ff60825bab7',
+              'stream_sha256': 'f8387e973b708dc3'}
 
 # The JAX loop detector on the CPU over the revisit scene of
 # `tests/test_loop_detector.py` (`synthetic.loop_scene`: world seed 3,

@@ -7,8 +7,9 @@ tree whose leaves go through ``np.asarray``), ``LioCaps``, ``LioParams``,
 VIO side's ``FusionState``, ``PreintState``, ``WindowState``, ``Prior``,
 ``FeatureTable``, ``VioState``, the loop detector's ``LoopCaps`` and
 ``LoopDB``, the fused system's ``LviConfig`` and ``LviSystem`` (the
-pipelined one too), batched LIO states (a leading B axis, on one device or
-over a mesh's ``batch`` slots), the
+pipelined one too, and one whose batched replay is active), the replay's
+``ReplayStatics`` and ``ReplayCarry``, batched LIO states (a leading B
+axis, on one device or over a mesh's ``batch`` slots), the
 calibration tool's ``CalibResult``, the ``PoseGraph`` that
 ``dense_information`` reads, the message dataclasses of ``core/messages``,
 and their parameter dataclasses into the port's objects on a given device,
@@ -27,6 +28,7 @@ from ..core import config as sc
 from ..core import messages as msg
 from ..core.config import CameraIntrinsics
 from ..models import pipeline as lvi
+from ..models import replay as rp
 from ..models.lio import imu_fusion, mapping, pipeline
 from ..models.loop import loop_detector as ld
 from ..models.vio import estimator as est
@@ -230,12 +232,40 @@ def lvi_config_from_jax(jcfg, pipeline_devices=None) -> lvi.LviConfig:
     )
 
 
+def replay_statics_from_jax(jst) -> rp.ReplayStatics:
+    """A JAX ``ReplayStatics`` -> the port's, each nested configuration
+    converted."""
+    return _dc(rp.ReplayStatics, jst, lio_caps=caps_from_jax(jst.lio_caps),
+               lio_params=params_from_jax(jst.lio_params),
+               fusion=fusion_params_from_jax(jst.fusion),
+               tracker=tracker_params_from_jax(jst.tracker), cam=camera_from_jax(jst.cam),
+               vio_caps=vio_caps_from_jax(jst.vio_caps),
+               vio_params=vio_params_from_jax(jst.vio_params),
+               ba_cfg=ba_config_from_jax(jst.ba_cfg), loop_caps=loop_caps_from_jax(jst.loop_caps))
+
+
+def replay_carry_from_jax(jcarry, device=None) -> rp.ReplayCarry:
+    """A JAX ``ReplayCarry`` -> the port's on `device`, with the host copy
+    of the VIO window fill read from its VIO state."""
+    return rp.ReplayCarry(
+        lio=state_from_jax(jcarry.lio, device),
+        fusion=fusion_state_from_jax(jcarry.fusion, device),
+        tracker=tracker_state_from_jax(jcarry.tracker, device),
+        vio=vio_state_from_jax(jcarry.vio, device),
+        loop_db=loop_db_from_jax(jcarry.loop_db, device),
+        **{name: _tensor(getattr(jcarry, name), device)
+           for name in ("depth_clouds", "depth_valid", "depth_stamps", "depth_slot", "vins")},
+        frame_count=int(np.asarray(jcarry.vio.frame_count)),
+    )
+
+
 def lvi_system_from_jax(jsys, device=None, sampler=None,
                         pipeline_devices=None) -> lvi.LviSystem:
-    """A JAX ``LviSystem`` (interactive or pipelined path, no events
-    pending) -> the port's on `device` or, pipelined, on the port's
-    `pipeline_devices`, carrying the device state (LIO map, fusion, tracker,
-    VIO, loop database, depth ring, each on its stage's device), the
+    """A JAX ``LviSystem`` (interactive or pipelined path, or with its
+    batched replay active and drained: no batch in flight) -> the port's on
+    `device` or, pipelined, on the port's `pipeline_devices`, carrying the
+    device state (LIO map, fusion, tracker, VIO, loop database, depth ring,
+    each on its stage's device; a replay's carry, its rows and statics), the
     pipelined stage-T output awaiting stage E, and the host state (IMU
     buffers, the fused odometry stream, the VIS odometry, the last fused
     state, frame times, ring stamps and slot, td, the flags and counters)."""
@@ -275,4 +305,14 @@ def lvi_system_from_jax(jsys, device=None, sampler=None,
         sys_._debug_keep(_tensor(img8, d_vio), slot)
     sys_._vio_frame_count = int(np.asarray(jsys.vio.frame_count))
     sys_._fusion_initialized = bool(np.asarray(jsys.fusion.initialized))
+    if getattr(jsys, "_replay_active", False):
+        # a drained replay: the carry (the device state of record), its
+        # statics, the staged rows and their host meta
+        sys_._replay_active = True
+        sys_._carry = replay_carry_from_jax(jsys._carry, d_lio)
+        sys_._replay_statics = replay_statics_from_jax(jsys._replay_statics)
+        sys_._replay_last_frame_t = jsys._replay_last_frame_t
+        sys_._ev_rows = [np.array(r, copy=True) for r in jsys._ev_rows]
+        sys_._ev_meta = copy.deepcopy(jsys._ev_meta)
+        sys_._point_at_carry()
     return sys_
