@@ -22,10 +22,13 @@ Phases, one line each:
    syncs per scan, keyframes, the trajectory's sha256, and kernel launch
    counts: one K2 launch per GN iteration, one K1 launch per refresh.
 4. determinism: a second replay must reproduce the trajectory bit for bit.
-3b. lio_upload_batch: the same replay at ``upload_batch = 8``
-   (``bench.py:231``): the trajectory's sha256 equal to phase 3's,
-   ceil(91 / 8) uploads (the pipeline's count of its copies); ms a scan
-   beside phase 3's.
+3b. lio_upload_batch: the port benchmark's LIO section
+   (``lvislam_tpu_torch/scripts/bench.py``: phase 3's configuration at
+   ``upload_batch = 8``, ``bench.py:231``; 11 warm scans, then the faster of
+   two segments of 40): the trajectory's sha256 equal to phase 3's,
+   ceil(91 / 8) uploads (the pipeline's count of its copies), the ATE within
+   +5% of the anchor; ``bench.py``'s headline keys beside phase 3's ms a
+   scan.
 5. CLAHE kernels K3 (tile_hist) and K4 (apply_cdf) from
    ``lvislam_tpu_torch/csrc/clahe.cu`` against their plain versions, bit for
    bit, on a rendered MEI 576x1024 frame and a uniform-random image (the
@@ -47,7 +50,9 @@ Phases, one line each:
    and K4), per-launch µs against its bound (bytes at 3.35 TB/s or f32
    operations at 67 TFLOP/s), and the latency floor of K1 (one query), K2
    (one point a class), K3 and K4 (an 8x8 image in one tile); K3 also on a
-   constant frame.
+   constant frame. The library yardsticks beside K1 and K3 (never called by
+   the port): ``torch.topk`` on K1's masked distances, ``torch.bincount`` on
+   K3's precomputed keys tile * 256 + bin (also at 480x752 in phase 11).
 
 9. IMU side: (a) ``navstate_predict`` over 60 s x 200 Hz of the figure-8's
    ideal IMU stream against ``navstate_predict_seq`` (the JAX parity test's
@@ -112,9 +117,9 @@ Phases, one line each:
    gated). The streams of phases 14 and 15 are raycast by worker processes
    while phases 1-12 run.
 Phases 15, 16, 17, 20, 21, 23, 24 and 25 run in eight spawned processes of
-their own, on the card, while the main process runs phases 18, 19, 14 and
-22 (every phase is host-bound and the card mostly idle; so the host times
-of phases 14-25 are taken with nine processes on the card):
+their own, on the card, while the main process runs phases 18, 19, 14, 22
+and 26 (every phase is host-bound and the card mostly idle; so the host
+times of phases 14-26 are taken with nine processes on the card):
 
 16. bag_fixture: the bag-replay entry point (``python -m
    lvislam_tpu_torch.scripts.run_rosbag_lvi``, called in-process on the
@@ -225,6 +230,15 @@ depth overlays at that stride.
    initialization; ATE <= 0.10 m. ``[lvi_replay_vs_parity]`` and
    ``[lvi_replay_full_vs_full]`` print 24 and 25 beside 14 and 15.
 
+26. tools (main process, after phase 22): the port's tools
+   (``lvislam_tpu_torch/scripts/``) on the card: the benchmark's ``imu`` and
+   ``vio`` sections (every ``bench.py`` key present and finite; K3 and K4
+   launched in ``tracker_step_ms``'s call); ``profile stages`` on phase 3's
+   scans and ``profile query`` at the full shapes (the stages' device time
+   within 10% of the whole step's; K1's wrapper, its plain version and
+   ``torch.topk`` select the same neighbours); ``train_vocab`` at toy
+   arguments on the card and on the CPU (vocabulary and idf equal).
+
 ``--loop`` adds the 38 s revisit arm of ``bench.py:770-887`` on the parity
 configuration (192 keyframes, 16 loop slots): at least one loop factor.
 
@@ -242,6 +256,7 @@ kernels.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -255,8 +270,14 @@ os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
+# the bench's configurations and streams (one home: the port's benchmark);
+# N_SCANS, RATE: the LIO replay; UPLOAD_BATCH, REPLAY_BATCH: phases 3b, 24, 25
+from lvislam_tpu_torch.scripts.bench_inputs import (  # noqa: E402
+    N_SCANS, RATE, REPLAY_BATCH, UPLOAD_BATCH, Prefetch, full_width_config, lvi_full_config,
+    lvi_loop_config, lvi_parity_config, lvi_stream, scan_jobs, stream_pool)
+
 ATE_LIMIT_PCT = 5.0  # BASELINE criterion: not more than 5% worse than the anchor
-N_SCANS, N_WARM, RATE = 91, 11, 10.0
+N_WARM = 11
 # the tracker sequence: 20 frames at 10 Hz from t = 0.1 s (bench.py's
 # camera timing); depth for the last 5 frames against scans 8..19
 N_FRAMES, DEPTH_FRAMES = 20, 5
@@ -300,10 +321,6 @@ LVI_WARM_S, LVI_PARITY_S, LVI_REPEAT_S, LVI_FULL_S, LVI_LOOP_S = 2.0, 12.0, 4.0,
 # NOTES r5 measured on the JAX side (0.0904-0.0961 m)
 LVI_BAND = 1.05
 LVI_FULL_ATE_M = 0.10  # an absolute bound of the shipped-scale sequence
-# phases 3b, 24, 25: the LIO batched upload (`bench.py:231`) and the batched
-# fused replay (`bench.py:539`, `:733`)
-UPLOAD_BATCH, REPLAY_BATCH = 8, 16
-STREAM_WORKERS = 4  # raycasting processes for phases 13-15
 
 
 T_START = time.perf_counter()
@@ -388,75 +405,6 @@ def cold_copies(tensors, n_bytes):
     most 128: a graph of `graph_us` takes 100)."""
     n = min(max(2, -(-int(2 * L2_BYTES) // int(n_bytes)) + 1), 128)
     return [[t.clone() for t in tensors] for _ in range(n)]
-
-
-def full_width_config():
-    """The bench's LIO configuration (`bench.py:_make_cfg`) with both
-    kernels on."""
-    from lvislam_tpu_torch.models.lio import mapping
-    from lvislam_tpu_torch.models.lio.pipeline import LioConfig
-
-    caps = mapping.LioCaps(
-        max_keyframes=256, kf_corner=512, kf_surf=2048, sel_keyframes=32,
-        map_corner=16384, map_surf=65536, scan_corner=512, scan_surf=2048,
-        max_loops=16, max_gps=16, loop_submap=8192, icp_iters=20,
-        pallas_knn=True, pallas_gn=True,
-    )
-    return LioConfig(
-        n_scan=4, horizon=6000, point_capacity=24576, caps=caps,
-        params=mapping.LioParams(nnRefreshEvery=2, mapRebuildEvery=8,
-                                 gatherOncePerScan=True),
-        loop_every_n_scans=10,
-    )
-
-
-class Prefetch:
-    """Raycasts (`synthetic.run_job` of each job) submitted to `pool` at
-    once, or run here without a pool; `get()` waits for them and returns
-    `finish(results)`. The script raycasts the streams of later phases
-    while the card runs earlier ones."""
-
-    def __init__(self, pool, jobs, finish):
-        from lvislam_tpu_torch.utils import synthetic as syn
-
-        self.jobs, self.finish, self.value, self.waited_s = jobs, finish, None, 0.0
-        self.futures = None if pool is None else [pool.submit(syn.run_job, j) for j in jobs]
-
-    def get(self):
-        from lvislam_tpu_torch.utils import synthetic as syn
-
-        if self.value is None:
-            t0 = time.perf_counter()
-            results = ([syn.run_job(j) for j in self.jobs] if self.futures is None
-                       else [f.result() for f in self.futures])
-            self.value = self.finish(results)
-            self.waited_s = time.perf_counter() - t0
-        return self.value
-
-
-def scan_jobs():
-    """The bench's 91 scans (`bench.py:_gen_scans`, `_lio_scans_data`) as
-    (jobs, finish): finish gives [(scan, IMU rel. times, gyro, rpy)]."""
-    import numpy as np
-    from scipy.spatial.transform import Rotation as Rsc
-
-    from lvislam_tpu_torch.utils import synthetic as syn
-
-    traj = syn.figure8_trajectory(scale=3.0, period=40.0)
-    ts = [i / RATE for i in range(N_SCANS)]
-
-    def finish(scans):
-        out = []
-        for t, scan in zip(ts, scans):
-            it = np.arange(t - 0.005, t + 1.0 / RATE + 0.01, 1.0 / 200.0)
-            w, _ = traj.imu(it)
-            _, R = traj.pose(np.array([t]))
-            rpy = Rsc.from_matrix(R[0]).as_euler("ZYX")[::-1]
-            out.append((scan, (it - t).astype(np.float32), w.astype(np.float32),
-                        np.array(rpy, np.float32)))
-        return out
-
-    return [("scan", (0, 3.0, 40.0), t, 6000, 1.0 / RATE) for t in ts], finish
 
 
 def parity_inputs(dev):
@@ -655,44 +603,37 @@ def replay(cfg, scans, dev):
             torch.stack(iters).cpu().numpy().astype(int))
 
 
-def lio_upload_batch_phase(cfg, scans, dev, ref_sha: str, ref_ms: float) -> dict:
-    """Phase 3b: phase 3's replay at `upload_batch = UPLOAD_BATCH`. Gates:
+def lio_upload_batch_phase(scans, dev, ref_sha: str, ref_ms: float) -> dict:
+    """Phase 3b: the port benchmark's LIO section (`bench.lio_section`:
+    phase 3's configuration at `upload_batch = UPLOAD_BATCH`, 11 warm scans,
+    then the faster of two segments of 40) over phase 3's 91 scans. Gates:
     the trajectory's sha256 equal to phase 3's; ceil(N_SCANS / UPLOAD_BATCH)
-    uploads (the pipeline's own count of its host-to-device copies). Prints
-    ms a scan (the run's wall, flush included, over its scans) beside phase
-    3's. The JAX package's dispatch modes (`async_dispatch`,
-    `pipelined_uploads`) select nothing here: one run covers them. Returns
-    the run's K1 / K2 launches."""
+    uploads (the pipeline's own count of its host-to-device copies);
+    `ate_vs_cpu_ref_pct` <= ATE_LIMIT_PCT. Prints `bench.py`'s headline keys
+    beside phase 3's ms a scan. The JAX package's dispatch modes
+    (`async_dispatch`, `pipelined_uploads`) select nothing here: one run
+    covers them. Returns the run's K1 / K2 launches."""
     import math
 
-    import torch
+    from lvislam_tpu_torch.scripts import bench
 
-    from lvislam_tpu_torch.models.lio.pipeline import LioPipeline
-    from lvislam_tpu_torch.ops import gn_partials as gnp
-    from lvislam_tpu_torch.ops import knn_tail as kt
-
-    k0 = (kt.LAUNCHES, gnp.LAUNCHES)
     want = math.ceil(len(scans) / UPLOAD_BATCH)
-    pipe = LioPipeline(dataclasses.replace(cfg, upload_batch=UPLOAD_BATCH), device=dev)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for s in scans:
-        pipe.process_scan(s[0], s[1], s[2], s[3])
-    traj = pipe.trajectory_array()  # flushes, then one readback
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    sha = sha256(traj)
-    log("lio_upload_batch", upload_batch=UPLOAD_BATCH, scans=len(scans),
-        uploads=pipe.uploads, uploads_expected=want,
-        batch_entries=sum(isinstance(t, tuple) for t, _ in pipe.trajectory),
-        ms_per_scan=round(1e3 * wall / len(scans), 3), phase3_ms_per_scan=round(ref_ms, 3),
-        trajectory_sha256=sha, phase3_sha256=ref_sha, bit_equal=sha == ref_sha)
+    out = {}
+    got = bench.lio_section(out, scans, dev)
+    sha = sha256(got["trajectory"])
+    log("lio_upload_batch", upload_batch=UPLOAD_BATCH, uploads=got["uploads"],
+        uploads_expected=want, phase3_ms_per_scan=round(ref_ms, 3), trajectory_sha256=sha,
+        phase3_sha256=ref_sha, bit_equal=sha == ref_sha, **out)
     if sha != ref_sha:
         raise AssertionError(f"lio_upload_batch: trajectory {sha} is not phase 3's {ref_sha}")
-    if pipe.uploads != want:
-        raise AssertionError(f"lio_upload_batch: {pipe.uploads} uploads for {len(scans)} "
+    if got["uploads"] != want:
+        raise AssertionError(f"lio_upload_batch: {got['uploads']} uploads for {len(scans)} "
                              f"scans at {UPLOAD_BATCH} a batch ({want})")
-    return {"K1": kt.LAUNCHES - k0[0], "K2": gnp.LAUNCHES - k0[1]}
+    if not out["ate_vs_cpu_ref_pct"] <= ATE_LIMIT_PCT:
+        raise AssertionError(f"lio_upload_batch: ATE {out['ate_rmse_m']} m is "
+                             f"{out['ate_vs_cpu_ref_pct']:+}% vs the anchor (limit "
+                             f"+{ATE_LIMIT_PCT}%)")
+    return got["launches"]
 
 
 def profile_steady(cfg, scans, dev, n_prof: int):
@@ -761,6 +702,7 @@ def alone_reporter(rec: dict):
                      "library_ms": None}
         log("alone", kernel=name, shape=shape, kernel_us=round(us, 3), bound_us=round(b, 4),
             bound_by=by, bound_share=round(b / us, 4), MB=round(n_bytes / 1e6, 3))
+        return rec[name]
     return report
 
 
@@ -898,8 +840,20 @@ def clahe_alone(frame, dev, report, sweep: bool, tag: str = ""):
     vec4 = all(clahe.apply_path(H, W, 8, 256, p) == "vector" for p in ptrs)
     slabs = clahe.hist_slabs(H // 8, 8, n_sm) if vec3 else 0
     rows = clahe.APPLY_ROWS if vec4 else 0
-    report("K3" + tag, *k3(imgs, 8, slabs), f"{H}x{W},slabs={slabs}")
+    r3 = report("K3" + tag, *k3(imgs, 8, slabs), f"{H}x{W},slabs={slabs}")
     report("K4" + tag, *k4(imgs, 8, rows), f"{H}x{W},rows={rows}")
+    # the library yardstick for K3: one torch.bincount over the pixels'
+    # precomputed keys tile * 256 + bin (the port never calls it)
+    th, tw = H // 8, W // 8
+    tile = ((torch.arange(th * 8, device=dev) // th)[:, None] * 8
+            + (torch.arange(tw * 8, device=dev) // tw)[None, :])
+    keys = (tile * 256 + clahe._bins(img0[: th * 8, : tw * 8], 256)).reshape(-1)
+    counts = torch.bincount(keys, minlength=64 * 256)
+    if not torch.equal(counts.reshape(64, 256).float(), clahe.tile_hist_plain(img0, 8)):
+        raise AssertionError(f"K3 on {H}x{W}: torch.bincount of the keys differs")
+    r3["library_ms"] = cuda_ms(lambda: torch.bincount(keys, minlength=64 * 256))
+    log("alone_library", kernel="K3" + tag, shape=f"{H}x{W}",
+        library="torch.bincount(keys, minlength=64*256)", library_ms=round(r3["library_ms"], 4))
     if tag:
         return
     flat = [torch.full_like(img0, 0.5)] * 2
@@ -1746,89 +1700,6 @@ def ba_alone(dev):
 # Phases 13-15: visual loop detection and the fused LVI system (config 5)
 # ---------------------------------------------------------------------------
 
-def stream_pool():
-    """Worker processes for the raycasts of every phase's stream, started
-    before the card's phases so the host renders while the card runs
-    (spawned: the workers never touch CUDA; one BLAS thread each)."""
-    import multiprocessing
-    from concurrent.futures import ProcessPoolExecutor
-
-    for var in ("OMP_NUM_THREADS", "OPENBLAS_NUM_THREADS", "MKL_NUM_THREADS"):
-        os.environ.setdefault(var, "1")
-    n = max(1, min(STREAM_WORKERS, (os.cpu_count() or 2) - 2))
-    return ProcessPoolExecutor(n, mp_context=multiprocessing.get_context("spawn"))
-
-
-def lvi_stream(pool, **kw) -> Prefetch:
-    """A fused-system stream (`synthetic.lvi_sequence_jobs(**kw)`)."""
-    from lvislam_tpu_torch.utils import synthetic as syn
-
-    head, jobs = syn.lvi_sequence_jobs(**kw)
-    return Prefetch(pool, jobs, lambda results: syn.lvi_sequence_join(head, results))
-
-
-def lvi_parity_config(kernels: bool = True):
-    """Config 5 at the parity scale: `tests/test_lvi_system.py:make_system`
-    (the port's copy, `run_synthetic_lvi.system_config`) with
-    `bench.py:apply_perf_knobs` (throttle 0.15 s, "schur", nnRefreshEvery=2,
-    mapRebuildEvery=1, K2 off). `kernels`: K1 on with `gatherOncePerScan`,
-    as the bench runs it on an accelerator; without, the CPU anchor's
-    settings (`utils/anchors.LVI_PARITY`)."""
-    import dataclasses
-
-    from lvislam_tpu_torch.scripts.run_synthetic_lvi import system_config
-
-    cfg = system_config()
-    lio = dataclasses.replace(
-        cfg.lio,
-        caps=dataclasses.replace(cfg.lio.caps, pallas_knn=kernels, pallas_gn=False),
-        params=dataclasses.replace(cfg.lio.params, nnRefreshEvery=2, mapRebuildEvery=1,
-                                   gatherOncePerScan=kernels))
-    return dataclasses.replace(cfg, lio=lio, ba=dataclasses.replace(cfg.ba, solver="schur"),
-                               mapping_process_interval=0.15)
-
-
-def lvi_full_config(map_rebuild_every: int | None = None):
-    """Config 5 at the shipped scale (`bench.py:668-767`): the full-width LIO
-    configuration with K1 and K2 on, the MEI 1024x576 rig with
-    `TrackerParams()` (CLAHE on: K3, K4), VIO window 10 x 150 features, BA
-    4 iterations "schur", the loop detector on with the trained vocabulary,
-    lidar_skip 3, throttle 0.15 s."""
-    import dataclasses
-
-    import numpy as np
-    from scipy.spatial.transform import Rotation as Rsc
-
-    from lvislam_tpu_torch.core.config import CameraIntrinsics
-    from lvislam_tpu_torch.models import pipeline as lvi
-    from lvislam_tpu_torch.models.loop import loop_detector as ld
-    from lvislam_tpu_torch.models.vio import estimator as est
-    from lvislam_tpu_torch.models.vio import feature_manager as fm
-    from lvislam_tpu_torch.models.vio import feature_tracker as ft
-    from lvislam_tpu_torch.ops import ba
-    from lvislam_tpu_torch.utils import synthetic as syn
-
-    lio = full_width_config()
-    lio.upload_batch = 1
-    if map_rebuild_every is not None:
-        lio.params = dataclasses.replace(lio.params, mapRebuildEvery=map_rebuild_every)
-    cam = CameraIntrinsics()
-    qic = np.roll(Rsc.from_matrix(syn.R_CAM_BODY).as_quat(), 1)
-    return lvi.LviConfig(
-        lio=lio,
-        vio_caps=fm.VioCaps(window=10, max_features=150, imu_buf=32, frame_features=150),
-        vio_params=est.VioParams(g_norm=syn.GRAVITY),
-        ba=ba.BAConfig(window=10, max_features=150, iterations=4, solver="schur",
-                       estimate_td=False, estimate_extrinsic=False),
-        tracker=ft.TrackerParams(), camera=cam,
-        loop_caps=ld.LoopCaps(max_keyframes=128, window_points=150, extra_points=256,
-                              recent_exclude=10, min_loop_matches=25),
-        image_height=cam.image_height, image_width=cam.image_width,
-        use_lidar_depth=True, lidar_skip=3, use_loop_detector=True,
-        mapping_process_interval=0.15, qic=tuple(qic.tolist()),
-    )
-
-
 def loop_scene_phase(stream, dev):
     """Phase 13: `add_and_detect` alone over the revisit scene, the port's
     default draws, against the JAX CPU run's accepted pairs."""
@@ -2114,17 +1985,15 @@ def lvi_full_phase(data, dev):
 
 def lvi_loop_phase(stream, dev):
     """`--loop`: the 38 s revisit arm (`bench.py:770-887`) on the parity
-    configuration with 192 keyframes and 16 loop slots: at least one loop
-    factor accepted; the loop count and the keyframe ATE."""
-    import dataclasses
-
+    configuration with 192 keyframes and 16 loop slots, on the interactive
+    path: at least one loop factor accepted; the loop count and the
+    keyframe ATE."""
     import numpy as np
 
     from lvislam_tpu_torch.utils import synthetic as syn
     from lvislam_tpu_torch.utils.metrics import ate_rmse
 
-    cfg = lvi_parity_config()
-    cfg.lio.caps = dataclasses.replace(cfg.lio.caps, max_keyframes=192, max_loops=16)
+    cfg = lvi_loop_config(replay_batch=1)
     data = stream.get()
     traj = syn.figure8_trajectory(scale=3.0, period=30.0)
     sys_, rec, wall = run_lvi(cfg, data, dev, LVI_WARM_S, LVI_LOOP_S)
@@ -3386,6 +3255,91 @@ def lvi_replay_full_phase(data, dev):
     return r
 
 
+@contextlib.contextmanager
+def quoted(tag: str):
+    """A tool's own output lines, printed after the block with `tag` in
+    front (so no line of the script but its last two is a bare JSON
+    object)."""
+    import io
+
+    buf = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(buf):
+            yield
+    finally:
+        for line in buf.getvalue().splitlines():
+            print(f"  {tag}: {line}", flush=True)
+
+
+TOOLS_VIO_REPS = 2  # phase 26: the bench's vio section at 2 calls a try (the bench: 8)
+TOOLS_STAGES_REPS = 2  # phase 26: profile stages at 2 calls an item (the tool: 5)
+TOOLS_STAGES_TOL = 0.10  # phase 26: the profiled stages' device time within 10% of the step's
+TOOLS_VOCAB_ARGS = ["--worlds", "1", "--frames", "4", "--words", "64"]  # phase 26: toy training
+
+
+def tools_phase(scans, dev) -> dict:
+    """Phase 26: the port's tools on the card. (a) The benchmark's `imu`
+    and `vio` sections (`bench.imu_section`, `bench.vio_section`): every
+    `bench.py` key of the two present and finite, K3 and K4 launched in
+    `tracker_step_ms`'s call. (b) `profile stages` on phase 3's scans (12
+    warm) and `profile query` at the full shapes (65536 map points, 2048
+    queries): unpack + project + features + `map_step` within
+    TOOLS_STAGES_TOL of the whole step in device time; K1's wrapper, its
+    plain version and `torch.topk` select the same neighbours. (c)
+    `train_vocab` at toy arguments on the card and on the CPU: the same
+    vocabulary and idf. Returns the phase's K1-K4 launches."""
+    import numpy as np
+
+    from lvislam_tpu_torch.scripts import bench, profile, train_vocab
+
+    c0 = bench.counters()
+    out = {}
+    bench.imu_section(out, dev)
+    bench.vio_section(out, dev, reps=TOOLS_VIO_REPS)
+    keys = ("imu_dead_reckon_ms_per_60s", "imu_dead_reckon_rtf", "vio_ba_solve_ms",
+            "vio_ba_iters_per_sec", "vio_ba_vs_ref_budget", "tracker_step_ms", "depth_reg_ms")
+    log("tools_bench", **{k: out[k] for k in keys},
+        **{k: v for k, v in out.items() if k not in keys})
+    bad = [k for k in keys if not (k in out and np.isfinite(out[k]))]
+    if bad:
+        raise AssertionError(f"tools: bench keys missing or not finite: {bad}")
+    k34 = out["tracker_step_launches"]
+    if not (k34["K3"] >= 1 and k34["K4"] >= 1):
+        raise AssertionError(f"tools: tracker_step_ms's call launched K3 / K4 {k34}")
+
+    with quoted("profile"):
+        st = profile.cmd_stages(profile.parse_args(
+            ["stages", "--reps", str(TOOLS_STAGES_REPS), "--device", str(dev)]), dev, scans)[-1]
+        q = profile.cmd_query(profile.parse_args(["query", "--device", str(dev)]), dev)[-1]
+    log("tools_profile", stages_device_ms=st["stages_device_ms"],
+        whole_device_ms=st["whole_device_ms"], device_sum_over_whole=st["device_sum_over_whole"],
+        stages_ms=st["stages_ms"], whole_ms=st["whole_ms"], sum_over_whole=st["sum_over_whole"],
+        query_selections_equal=q["selections_equal"], query_found_share=q["found_share"])
+    if not abs(st["device_sum_over_whole"] - 1.0) <= TOOLS_STAGES_TOL:
+        raise AssertionError(f"tools: the stages' device time is {st['device_sum_over_whole']} "
+                             "of the whole step's")
+    if not q["selections_equal"]:
+        raise AssertionError(f"tools: query selections differ {q}")
+
+    out_dir = os.path.join(ROOT, ".chip_tmp", "vocab")
+    os.makedirs(out_dir, exist_ok=True)
+    t0 = time.perf_counter()
+    with quoted("train_vocab"):
+        card = train_vocab.main([os.path.join(out_dir, "card.npz"), *TOOLS_VOCAB_ARGS,
+                                 "--device", str(dev)])
+        card_s = time.perf_counter() - t0
+        cpu = train_vocab.main([os.path.join(out_dir, "cpu.npz"), *TOOLS_VOCAB_ARGS,
+                                "--device", "cpu"])
+    equal = [bool(np.array_equal(a, b)) for a, b in zip(card, cpu)]
+    log("tools_train_vocab", args=" ".join(TOOLS_VOCAB_ARGS), words=card[0].shape[0],
+        vocab_equal=equal[0], idf_equal=equal[1], card_s=round(card_s, 2))
+    if not all(equal):
+        raise AssertionError("tools: train_vocab's vocabulary or idf differ between the card "
+                             "and the CPU")
+    return dict(zip(("K1", "K2", "K3", "K4"),
+                    [b - a for a, b in zip(c0[1:], bench.counters()[1:])]))
+
+
 def main() -> int:
     import torch
 
@@ -3413,7 +3367,7 @@ def main() -> int:
 def phase_pool():
     """Eight spawned processes (`phase_worker_init`) for phases 15, 16, 17,
     20, 21, 23, 24 and 25, which run on the card while the main process runs
-    18, 19, 14 and 22: every phase is host-bound and the card is mostly
+    18, 19, 14, 22 and 26: every phase is host-bound and the card is mostly
     idle, so the script's time stays under its limit on a slow host."""
     import multiprocessing
     from concurrent.futures import ProcessPoolExecutor
@@ -3506,8 +3460,8 @@ def run_phases(pool, phases, dev) -> int:
     log("determinism", identical=True)
 
     # ---- 3b. the same replay at the bench's upload_batch ----
-    batched_k = lio_upload_batch_phase(cfg, scans, dev, sha256(traj1),
-                                       1e3 * float(np.sum(times)) / N_SCANS)
+    batched_k = lio_upload_batch_phase(scans, dev, sha256(traj1),
+                                       1e3 * float(np.mean(times[N_WARM:])))
     n_prof = int(sys.argv[sys.argv.index("--profile") + 1]) if "--profile" in sys.argv else 0
     if n_prof:
         profile_steady(cfg, scans, dev, n_prof)
@@ -3640,6 +3594,9 @@ def run_phases(pool, phases, dev) -> int:
     # ---- 22. the multi-device part at config 3's widths ----
     md = multi_device_phase(cfg, scans, dev)
 
+    # ---- 26. the tools: bench sections, profile, train_vocab ----
+    tools_k = tools_phase(scans, dev)
+
     (full, full_gated, full_rows), (_, bag_fix), (_, bag_ship, ship_rows), euroc_k, \
         synthetic_k, pipe, rep24, rep25 = [job.result() for job in jobs]
     compare_with_full(ship_rows, full_rows)
@@ -3677,6 +3634,7 @@ def run_phases(pool, phases, dev) -> int:
             by_path[key]["multi_device_batch"] = md[key]
         if key in euroc_k:
             by_path[key]["euroc_entry"] = euroc_k[key]
+        by_path[key]["tools"] = tools_k[key]
     launches = {k: sum(v.values()) for k, v in by_path.items()}
 
     def timing(key):
@@ -3691,6 +3649,7 @@ def run_phases(pool, phases, dev) -> int:
         a = alone[f"{key}_480x752"]
         return {"shape": "480x752", "ms": k34_vio[2][key], "plain_ms": k34_vio[2][f"{key}_plain"],
                 "max_abs_err": k34_vio[col], "kernel_us": a["kernel_us"],
+                "library_ms": a["library_ms"],
                 "bound_us": a["bound_us"], "bound_ms": a["bound_us"] / 1e3,
                 "bound_by": a["bound_by"], "bound_share": a["bound_share"]}
 
@@ -3715,7 +3674,9 @@ def run_phases(pool, phases, dev) -> int:
          "launches": launches["K3"], "launches_by_path": by_path["K3"],
          "max_abs_err": max(r[0] for r in (*k34.values(), k34_vio)),
          "ms": k34["rendered"][2]["K3"], "plain_ms": k34["rendered"][2]["K3_plain"],
-         **timing("K3"), "vio_full": at_vio_shape("K3", 0)},
+         **timing("K3"), "vio_full": at_vio_shape("K3", 0),
+         "library": "torch.bincount(keys, minlength=64*256) on precomputed keys "
+                    "tile * 256 + bin: the counting half only"},
         {"name": "apply_cdf", "route": "cuda",
          "source": "lvislam_tpu_torch/csrc/clahe.cu",
          "replaces": "lvislam_tpu/ops/pallas_clahe.py:98",

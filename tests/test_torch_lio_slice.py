@@ -301,7 +301,9 @@ def test_port_imports_no_jax():
         "        'scripts.run_rosbag_lvi', 'core.messages', 'utils.profiling', 'utils.png',\n"
         "        'utils.debugviz', 'utils.native', 'ops.chessboard', 'ops.calibration',\n"
         "        'scripts.run_euroc_vio', 'scripts.run_synthetic_lvi', 'parallel.mesh',\n"
-        "        'parallel.sharded_knn', 'parallel.sharded_scan2map', 'parallel.batch_replay']\n"
+        "        'parallel.sharded_knn', 'parallel.sharded_scan2map', 'parallel.batch_replay',\n"
+        "        'models.replay', 'scripts.bench', 'scripts.bench_inputs', 'scripts.profile',\n"
+        "        'scripts.train_vocab']\n"
         "missing = [m for m in need if 'lvislam_tpu_torch.' + m not in sys.modules]\n"
         "assert not missing, missing\n"
         "print('clean', len([m for m in sys.modules if m.startswith('lvislam_tpu_torch')]))\n"

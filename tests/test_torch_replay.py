@@ -393,6 +393,74 @@ def test_carried_replay_fed_two_batches(port_fed, jax_replay_fed):
     assert port.lio.state is port._carry.lio and port.vio is port._carry.vio
 
 
+def watch_drain(s, port: bool) -> dict:
+    """Record, for each frame a replay system stages, (stamp, the batches
+    shipped whose outputs the host had not taken yet, the td it stages
+    with). The port takes a batch's outputs in `_take_outputs`, JAX in
+    `_process_outputs`."""
+    rec = {"shipped": 0, "taken": 0, "frames": []}
+    ship, stage = s._ship_events, s._stage_frame
+    take_name = "_take_outputs" if port else "_process_outputs"
+    take = getattr(s, take_name)
+
+    def shipped(*a, **kw):
+        rec["shipped"] += 1
+        return ship(*a, **kw)
+
+    def taken(meta, o):
+        rec["taken"] += 1
+        return take(meta, o)
+
+    def staged(stamp, msg):
+        rec["frames"].append((round(stamp, 3), rec["shipped"] - rec["taken"], s._td))
+        return stage(stamp, msg)
+
+    s._ship_events, s._stage_frame = shipped, staged
+    setattr(s, take_name, taken)
+    return rec
+
+
+def test_estimate_td_replay_from_carried_state(parity_data):
+    """The replay with `estimate_td` on (`BAConfig`'s default and
+    `configs/params_camera.yaml`'s), from a JAX replay system carried at
+    CARRY_T and fed on to END_T in both. A staged frame's IMU window is
+    bounded by the td of the last batch the host drained, and the two drain
+    at different depths: the port takes every batch but the newest at each
+    ship (`_drain_results(keep=1)`: depth 1 from the second batch on), JAX
+    only what its worker thread has finished, which is never the batch just
+    handed over (depth >= the port's; 2 on the CPU here, so its last
+    frames stage with the carry's td where the port's use batch 1's). The
+    lag does not move the poses past the carried replay's bounds (50 mm /
+    5 mrad, `test_carried_replay_fed_two_batches`; 6.7 mm / 0.26 mrad
+    here), and td ends within 1e-3 s (a fifth of an IMU period; 4.1e-4
+    here), so the port keeps its drain."""
+    s = jax_replay_system(BATCH)
+    s.cfg.ba = dataclasses.replace(s.cfg.ba, estimate_td=True)
+    tsyn.feed_lvi(s, parity_data, 0.0, CARRY_T)
+    s.run()
+    assert s._replay_active and not s._ev_rows and s._td != 0.0
+    port = convert.lvi_system_from_jax(copy_replay_system(s), device="cpu", sampler=jax_sampler)
+    assert port.cfg.ba.estimate_td and port._td == s._td
+    jrec, trec = watch_drain(s, port=False), watch_drain(port, port=True)
+    n0 = len(port.trajectory)
+    for sys_ in (s, port):
+        tsyn.feed_lvi(sys_, parity_data, CARRY_T, END_T)
+        sys_.run()
+    print("drain depth and td a staged frame: JAX", jrec["frames"], "port", trec["frames"])
+    assert [f[0] for f in jrec["frames"]] == [f[0] for f in trec["frames"]]
+    depths = [d for _, d, _ in trec["frames"]]
+    assert jrec["shipped"] == trec["shipped"] >= 3 and depths[0] == 0
+    assert depths == sorted(depths) and set(depths) == {0, 1}
+    assert all(j >= p for (_, j, _), p in zip(jrec["frames"], depths))
+    assert [t for t, _ in port.trajectory] == [t for t, _ in s.trajectory]
+    a = np.stack([np.asarray(x) for _, x in port.trajectory[n0:]])
+    b = np.stack([np.asarray(x) for _, x in s.trajectory[n0:]])
+    assert np.abs(a[:, 3:6] - b[:, 3:6]).max() < 0.05
+    assert np.abs(a[:, 0:3] - b[:, 0:3]).max() < 5e-3
+    assert port._td != trec["frames"][0][2] and abs(port._td - s._td) < 1e-3
+    assert port.replay_counts["staged"] == port.replay_counts["returned"]
+
+
 # ---- the port's own paths, from the carried replay system ----
 
 def _port_at_carry(jax_replay_fed, **cfg):
