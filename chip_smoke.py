@@ -32,8 +32,10 @@ Phases, one line each:
 5. CLAHE kernels K3 (tile_hist) and K4 (apply_cdf) from
    ``lvislam_tpu_torch/csrc/clahe.cu`` against their plain versions, bit for
    bit, on a rendered MEI 576x1024 frame and a uniform-random image (the
-   vector kernels) and on the frame cropped to 571x1021 (the general
-   kernels), with CUDA-event timings of both.
+   vector kernels), on the frame cropped to 480x752 and a uniform-random
+   480x752 image (the EuRoC camera's size: the aligned kernels) and on the
+   frame cropped to 571x1021 (the general kernels), with CUDA-event timings
+   of both.
 6. tracker: 20 MEI 1024x576 frames of the LIO replay's world and trajectory
    (t = 0.1 + i/10 s) through ``FeatureTracker`` at ``TrackerParams()``
    defaults with K3 and K4 on. Gates: each kernel launched once a frame;
@@ -50,9 +52,11 @@ Phases, one line each:
    and K4), per-launch µs against its bound (bytes at 3.35 TB/s or f32
    operations at 67 TFLOP/s), and the latency floor of K1 (one query), K2
    (one point a class), K3 and K4 (an 8x8 image in one tile); K3 also on a
-   constant frame. The library yardsticks beside K1 and K3 (never called by
-   the port): ``torch.topk`` on K1's masked distances, ``torch.bincount`` on
-   K3's precomputed keys tile * 256 + bin (also at 480x752 in phase 11).
+   constant frame. The library yardsticks beside K1, K3 and K4 (never called
+   by the port): ``torch.topk`` on K1's masked distances, ``torch.bincount``
+   on K3's precomputed keys tile * 256 + bin, one 5-D ``F.grid_sample`` of
+   the CDF volume at K4's precomputed coordinates (K3's and K4's also at
+   480x752 in phase 11).
 
 9. IMU side: (a) ``navstate_predict`` over 60 s x 200 Hz of the figure-8's
    ideal IMU stream against ``navstate_predict_seq`` (the JAX parity test's
@@ -82,9 +86,10 @@ Phases, one line each:
 11. VIO at full width: the EuRoC cam0 size (752x480 pinhole, no distortion),
    150 features, CLAHE on, 256 slots, 6 iterations; K3 and K4 held against
    their plain versions at this shape and timed alone against its bound
-   first. The same gate; of the first "ok" run: ms a frame split into
-   tracker / process_imu / process_image, BA iterations and host syncs a
-   frame, K3/K4 launches (one a frame) and the kernels they took.
+   first (the aligned kernels). The same gate; of the first "ok" run: ms a
+   frame split into tracker / process_imu / process_image, BA iterations and
+   host syncs a frame, K3/K4 launches (one a frame) and the kernels they
+   took.
 12. BA alone: ``ba.solve`` with "qr", "cholesky" and "schur" on the exact
    synthetic window at the reference shape (window 10, 150 features); the
    three must agree; ms a solve by CUDA events.
@@ -249,9 +254,12 @@ There is no CPU path: without a GPU the script fails.
 ``python3 chip_smoke.py --profile N`` adds torch.profiler traces of N
 steady scans, N steady tracker frames and the last N frames of each VIO run
 (device busy share, device time by kernel; K1-K4's launches and device time
-a scan or frame) before the result. ``--sweep`` adds to phase 8 the launch sizes beside the wrappers'
-own: K3 at 1 to 8 slabs a tile, K4 at 9 to 36 rows a block, and both general
-kernels.
+a scan or frame) before the result. ``--sweep`` adds to phases 8 and 11
+the launch sizes beside the wrappers' own, at 576x1024 and 480x752: K3 at 1
+to 8 slabs a tile or group, K4 in blocks of 12 to 48 rows by 16 to 128
+columns from column 0 (the aligned cut) and, where tw % 8 == 0, at 9 to 36
+rows of one lattice cell; both general kernels, K4's also on the frame's
+first 64 rows (as many rows a block, fewer blocks: its cost a block).
 """
 
 from __future__ import annotations
@@ -288,6 +296,7 @@ DEPTH_ERR_FACTOR, DEPTH_ERR_SLACK_M = 1.5, 0.02  # median error <= 1.5 x JAX + 2
 # one H100 SXM at its 700 W limit (NVIDIA's H100 data sheet)
 HBM_BYTES_PER_S, F32_FLOPS_PER_S = 3.35e12, 67e12
 L2_BYTES = 50e6  # phase 8 rotates inputs through twice this
+GRID_SAMPLE_TOL = 1e-5  # K4's yardstick against the plain version (its own blend order)
 # K2's f32 operations a point, counted by hand from csrc/gn_partials.cu
 # (transform, gate, mean, scatter, eigensystem, 1 or 2 eigenvectors, plane
 # or line coefficients, J row, 27 partials, the block tree)
@@ -795,13 +804,17 @@ def kernel_alone(sets, blocks, par, frame, dev, sweep: bool = False):
 def clahe_alone(frame, dev, report, sweep: bool, tag: str = ""):
     """Phase 8 for K3 and K4: the raw entry points on the rendered `frame`
     with the kernel and launch size the wrappers pick at its shape (cold in
-    L2), on the smallest image the vector kernels take (8x8 in one tile: the
+    L2): the vector kernels at the rig's 576x1024, the aligned ones at the
+    EuRoC camera's 480x752 (tw = 94), the general ones where W % 4 != 0.
+    Then the library yardsticks (``torch.bincount`` for K3, ``F.grid_sample``
+    for K4, each checked against the plain version). Without a `tag`, also
+    on the smallest image the vector kernels take (8x8 in one tile: the
     launches' fixed cost), and K3 on a constant frame (every lane of a warp
     on one shared-memory counter). Every timed launch's result must equal
     the plain version's. With `sweep`, also K3 at other slab counts and K4
-    at other rows a block (0: the general kernels), on the rendered frame.
-    With a `tag` (a second shape of the main paths) only the frame's own two
-    records, named K3<tag> and K4<tag>."""
+    at other rows and columns a block (0: the general kernels), on the
+    rendered frame. Records are named K3<tag>, K4<tag> (a `tag` names a
+    second shape of the main paths) and carry the path taken."""
     import torch
 
     from lvislam_tpu_torch.ops import _kernels, clahe
@@ -820,31 +833,33 @@ def clahe_alone(frame, dev, report, sweep: bool, tag: str = ""):
             raise AssertionError(f"K3 slabs={slabs} on {H}x{W}: counts differ")
         return us, nbytes((imgs[0], hist)), 3 * H * W
 
-    def k4(imgs, tiles, rows):
+    def k4(imgs, tiles, rows, cols=0):
         H, W = imgs[0].shape
         cdf = imops.clip_cdf(clahe.tile_hist_plain(imgs[0], tiles), (H // tiles) * (W // tiles))
         res = torch.empty_like(imgs[0])
         us = graph_us(lambda i, s: _kernels.check(lib.lvt_clahe_apply(
             imgs[i % len(imgs)].data_ptr(), cdf.data_ptr(), res.data_ptr(), H, W, tiles, 256,
-            rows, s), "lvt_clahe_apply"))
+            rows, cols, s), "lvt_clahe_apply"))
         if not torch.equal(res, clahe.apply_cdf_plain(imgs[0], cdf, tiles)):
-            raise AssertionError(f"K4 rows={rows} on {H}x{W}: pixels differ")
+            raise AssertionError(f"K4 rows={rows} cols={cols} on {H}x{W}: pixels differ")
         return us, nbytes((imgs[0], cdf, res)), 12 * H * W
 
     img0 = torch.as_tensor(frame, device=dev)
     H, W = img0.shape
+    th, tw = H // 8, W // 8
     imgs = [c[0] for c in cold_copies([img0], H * W * 4)]
-    # 0 slabs / 0 rows: the general kernels, as the wrappers choose
+    # the launch sizes the wrappers choose (0 slabs / 0 rows: the general
+    # kernels), on every copy's address
     ptrs = [i.data_ptr() for i in imgs]
-    vec3 = all(clahe.hist_path(H, W, 8, p) == "vector" for p in ptrs)
-    vec4 = all(clahe.apply_path(H, W, 8, 256, p) == "vector" for p in ptrs)
-    slabs = clahe.hist_slabs(H // 8, 8, n_sm) if vec3 else 0
-    rows = clahe.APPLY_ROWS if vec4 else 0
-    r3 = report("K3" + tag, *k3(imgs, 8, slabs), f"{H}x{W},slabs={slabs}")
-    report("K4" + tag, *k4(imgs, 8, rows), f"{H}x{W},rows={rows}")
+    (p3, slabs), = {(clahe.hist_path(H, W, 8, p), clahe.hist_launch(H, W, 8, p, n_sm))
+                    for p in ptrs}
+    (p4, rows, cols), = {(clahe.apply_path(H, W, 8, 256, p), *clahe.apply_launch(H, W, 8, 256, p))
+                         for p in ptrs}
+    r3 = report("K3" + tag, *k3(imgs, 8, slabs), f"{H}x{W},{p3},slabs={slabs}")
+    r4 = report("K4" + tag, *k4(imgs, 8, rows, cols), f"{H}x{W},{p4},rows={rows},cols={cols}")
+    r3["path"], r4["path"] = p3, p4
     # the library yardstick for K3: one torch.bincount over the pixels'
     # precomputed keys tile * 256 + bin (the port never calls it)
-    th, tw = H // 8, W // 8
     tile = ((torch.arange(th * 8, device=dev) // th)[:, None] * 8
             + (torch.arange(tw * 8, device=dev) // tw)[None, :])
     keys = (tile * 256 + clahe._bins(img0[: th * 8, : tw * 8], 256)).reshape(-1)
@@ -854,19 +869,72 @@ def clahe_alone(frame, dev, report, sweep: bool, tag: str = ""):
     r3["library_ms"] = cuda_ms(lambda: torch.bincount(keys, minlength=64 * 256))
     log("alone_library", kernel="K3" + tag, shape=f"{H}x{W}",
         library="torch.bincount(keys, minlength=64*256)", library_ms=round(r3["library_ms"], 4))
-    if tag:
-        return
-    flat = [torch.full_like(img0, 0.5)] * 2
-    tiny = [torch.rand((8, 8), device=dev)] * 2
-    report("K3_constant", *k3(flat, 8, slabs), f"{H}x{W},slabs={slabs}")
-    report("K3_floor", *k3(tiny, 1, clahe.hist_slabs(8, 1, n_sm)), "8x8,tiles=1")
-    report("K4_floor", *k4(tiny, 1, clahe.APPLY_ROWS), "8x8,tiles=1")
+    # the library yardstick for K4: one F.grid_sample of the CDF volume at
+    # precomputed coordinates (the lookup half; the port never calls it)
+    cdf0 = imops.clip_cdf(clahe.tile_hist_plain(img0, 8), th * tw)
+    vol, grid = grid_sample_inputs(img0, cdf0)
+    err = float((grid_sample_apply(vol, grid) - clahe.apply_cdf_plain(img0, cdf0)).abs().max())
+    if not err <= GRID_SAMPLE_TOL:
+        raise AssertionError(f"K4 on {H}x{W}: F.grid_sample differs from the plain version "
+                             f"by {err:.3e} (tolerance {GRID_SAMPLE_TOL})")
+    r4["library_ms"] = cuda_ms(lambda: grid_sample_apply(vol, grid))
+    log("alone_library", kernel="K4" + tag, shape=f"{H}x{W}",
+        library="F.grid_sample(5-D, bilinear, border, align_corners=True)",
+        library_ms=round(r4["library_ms"], 4), max_abs_err=err)
+    if not tag:
+        flat = [torch.full_like(img0, 0.5)] * 2
+        tiny = [torch.rand((8, 8), device=dev)] * 2
+        report("K3_constant", *k3(flat, 8, slabs), f"{H}x{W},slabs={slabs}")
+        report("K3_floor", *k3(tiny, 1, clahe.hist_slabs(8, 1, n_sm)), "8x8,tiles=1")
+        report("K4_floor", *k4(tiny, 1, clahe.APPLY_ROWS), "8x8,tiles=1")
     if not sweep:
         return
     for n in (0, 1, 2, 4, 8):
-        report(f"K3_slabs{n}", *k3(imgs, 8, n), f"{H}x{W}")
-    for rows in (0, 9, 12, 16, 18, 24, 32, 36):
-        report(f"K4_rows{rows}", *k4(imgs, 8, rows), f"{H}x{W}")
+        report(f"K3_slabs{n}{tag}", *k3(imgs, 8, n), f"{H}x{W}")
+    # the general K4 on the frame's first 64 rows (th = 8): its blocks do the
+    # frame's work a block, 1/7.5 of them at 480x752
+    report(f"K4_general_64rows{tag}", *k4([i[:64] for i in imgs], 8, 0), f"64x{W}")
+    lattice = (0, 9, 12, 16, 18, 24, 32, 36) if tw % 8 == 0 else (0,)
+    for r in lattice:
+        report(f"K4_rows{r}{tag}", *k4(imgs, 8, r), f"{H}x{W}")
+    for c in (16, 32, 64, 128):
+        for r in (12, 16, 24, 32, 48):
+            if c <= min(tw, 256):
+                report(f"K4_rows{r}_cols{c}{tag}", *k4(imgs, 8, r, c), f"{H}x{W}")
+
+
+def grid_sample_inputs(img, cdf, tiles: int = 8):
+    """K4's library yardstick: the CDFs as a (1, 1, n_bins, tiles, tiles)
+    volume and each pixel's normalised (tile column, tile row, bin)
+    coordinates for one 5-D ``F.grid_sample`` (bilinear, border padding,
+    ``align_corners=True``): ``((i + 0.5) / span - 0.5) / (tiles - 1) * 2 -
+    1`` along each axis, ``b / (n_bins - 1) * 2 - 1`` along the bins. The
+    border padding reproduces ``lerp_mat``'s clamps. Never called by the
+    port."""
+    import torch
+
+    from lvislam_tpu_torch.ops import clahe
+
+    H, W = img.shape
+    n_bins = cdf.shape[1]
+    vol = cdf.reshape(1, 1, tiles, tiles, n_bins).permute(0, 1, 4, 2, 3).contiguous()
+
+    def axis(n, span):  # on the host: a true division, as clahe._lerp_taps
+        return (((torch.arange(n, dtype=torch.float32) + 0.5) / span - 0.5) / (tiles - 1) * 2
+                - 1).to(img.device)
+
+    gx = axis(W, W // tiles)[None, :].expand(H, W)
+    gy = axis(H, H // tiles)[:, None].expand(H, W)
+    gz = clahe._bins(img, n_bins).float() / (n_bins - 1) * 2 - 1
+    return vol, torch.stack([gx, gy, gz], -1)[None, None]
+
+
+def grid_sample_apply(vol, grid):
+    """The yardstick's one call: (H, W) f32 from `grid_sample_inputs`."""
+    import torch.nn.functional as F
+
+    return F.grid_sample(vol, grid, mode="bilinear", padding_mode="border",
+                         align_corners=True)[0, 0, 0]
 
 
 def tracker_frame_jobs():
@@ -974,13 +1042,17 @@ def depth_metrics(outs, depths, ts, world, traj):
 def rig_clahe_images(frame):
     """Phase 5's images as {name: (array, the kernels they must take)}: a
     rendered frame and a uniform-random image at the rig's 576x1024 (the
-    vector kernels), and the rendered frame cropped to 571x1021 (the general
-    kernels)."""
+    vector kernels: tw = 128), the rendered frame cropped to the EuRoC
+    camera's 480x752 and a uniform-random 480x752 image (the aligned
+    kernels: tw = 94, W % 4 == 0), and the rendered frame cropped to
+    571x1021 (the general kernels: W % 4 != 0)."""
     import numpy as np
 
     rng = np.random.default_rng(0)
     return {"rendered": (frame, "vector"),
             "uniform": (rng.random(frame.shape, dtype=np.float32), "vector"),
+            "rendered_480x752": (frame[:480, :752].copy(), "aligned"),
+            "uniform_480x752": (rng.random((480, 752), dtype=np.float32), "aligned"),
             "cropped": (frame[:-5, :-3].copy(), "general")}
 
 
@@ -3552,8 +3624,9 @@ def run_phases(pool, phases, dev) -> int:
     stream = streams["vio_full"].get()
     log("vio_frames", n=len(stream[4]), shape="480x752", imu_samples=len(stream[2]),
         wait_seconds=round(streams["vio_full"].waited_s, 1))
-    k34_vio = check_clahe_kernels({"euroc": (stream[4][0], "general")}, dev)["euroc"]
-    clahe_alone(stream[4][0], dev, alone_reporter(alone), sweep=False, tag="_480x752")
+    k34_vio = check_clahe_kernels({"euroc": (stream[4][0], "aligned")}, dev)["euroc"]
+    clahe_alone(stream[4][0], dev, alone_reporter(alone), sweep="--sweep" in sys.argv,
+                tag="_480x752")
     (vio_k3, vio_k4), vio_full_outcomes = check_vio(
         "vio_full", vio_config(True), stream, anchors.VIO_FULL_WIDTH, dev, n_prof)
     by_path = {"K1": {"lio_replay": launches["K1"]}, "K2": {"lio_replay": launches["K2"]},
@@ -3647,7 +3720,8 @@ def run_phases(pool, phases, dev) -> int:
         """The kernel's record at the full-width VIO frame's shape: wrapper
         and plain ms, kernel-alone µs and its bound there."""
         a = alone[f"{key}_480x752"]
-        return {"shape": "480x752", "ms": k34_vio[2][key], "plain_ms": k34_vio[2][f"{key}_plain"],
+        return {"shape": "480x752", "path": a["path"], "ms": k34_vio[2][key],
+                "plain_ms": k34_vio[2][f"{key}_plain"],
                 "max_abs_err": k34_vio[col], "kernel_us": a["kernel_us"],
                 "library_ms": a["library_ms"],
                 "bound_us": a["bound_us"], "bound_ms": a["bound_us"] / 1e3,
@@ -3683,7 +3757,9 @@ def run_phases(pool, phases, dev) -> int:
          "launches": launches["K4"], "launches_by_path": by_path["K4"],
          "max_abs_err": max(r[1] for r in (*k34.values(), k34_vio)),
          "ms": k34["rendered"][2]["K4"], "plain_ms": k34["rendered"][2]["K4_plain"],
-         **timing("K4"), "vio_full": at_vio_shape("K4", 1)},
+         **timing("K4"), "vio_full": at_vio_shape("K4", 1),
+         "library": "F.grid_sample of the (1, 1, 256, 8, 8) CDF volume at precomputed "
+                    "coordinates, bilinear, border, align_corners=True: the lookup half only"},
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

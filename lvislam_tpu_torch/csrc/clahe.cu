@@ -11,18 +11,25 @@
 // of its loads in flight at once.
 //  - Vector kernel (W and tw multiples of 4, a 16-byte aligned image): a tile
 //    is cut into `slabs` bands of rows, one block each, so that the grid holds
-//    about two blocks an SM. A thread starts up to kHistLoads 16-byte loads
+//    up to about two blocks an SM (ops/clahe.py:hist_slabs: no band under two
+//    loads a thread). A thread starts up to kHistLoads 16-byte loads
 //    before the block clears its histograms and before its first atomicAdd.
 //    Each warp counts into its own n_bins ints of shared memory; the block
 //    sums its warps' histograms into the first one.
-//  - The slabs of a tile are merged without float atomics and in the same
-//    launch: the tile's blocks are one thread block cluster; after a cluster
+//  - Aligned kernel (W a multiple of 4 and a 16-byte aligned image, but tw
+//    not: the EuRoC camera's 752 columns give tw = 94): the same kernel over
+//    groups of G = 4 / gcd(tw, 4) neighbouring tiles of one tile row, whose
+//    G * tw columns are a multiple of 4, so no 16-byte load straddles two
+//    groups. A pixel's tile in its group is G - 1 compares of its column;
+//    each warp counts into G * n_bins ints. The vector kernel is G = 1.
+//  - The slabs of a tile (group) are merged without float atomics and in the
+//    same launch: its blocks are one thread block cluster; after a cluster
 //    barrier each block sums its share of the bins over all the blocks'
 //    histograms through distributed shared memory and writes them once as
 //    f32. Integer counts are the same in any order, so the result repeats
 //    bit for bit and equals torch.bincount.
-//  - General kernel (any other shape or alignment): one block a tile, scalar
-//    loads.
+//  - General kernel (W % 4 != 0, a misaligned image, or tiles % G != 0): one
+//    block a tile, scalar loads.
 //
 // K4 replaces lvislam_tpu/ops/pallas_clahe.py:98 apply_lut. For a pixel at
 // (y, x) the two-tap weights of image.py:lerp_mat give tile rows (r0, r1)
@@ -44,8 +51,17 @@
 //  - The window's rows (neighbouring tiles are neighbours in memory) come
 //    into shared memory by cp.async.bulk copies that complete on an
 //    mbarrier, started by one thread after the pixel loads.
-//  - General kernel: one thread a column, kApplyRows rows a block, the window
-//    copied by the threads before the first pixel load.
+//  - Aligned kernel (W and n_bins multiples of 4, 16-byte aligned tensors, tw
+//    not a multiple of 8, so lattice cells start on odd columns: at tw = 94
+//    on 47, 141, ...): the vector kernel with the x axis cut into blocks of
+//    `cols` columns from column 0, a power of two no wider than a tile,
+//    instead of at lattice cells. A block then spans two lattice cells at
+//    most, a window of 2 x 3 tiles, and each of a thread's 4 columns has its
+//    own taps, so a 16-byte vector that straddles a cell edge needs nothing
+//    more. Rows are cut at lattice cells as in the vector kernel.
+//  - General kernel (W or n_bins % 4 != 0, a misaligned tensor, tw < 4): one
+//    thread a column, kApplyRows rows a block, the window copied by the
+//    threads before the first pixel load.
 
 #include <algorithm>
 #include <cooperative_groups.h>
@@ -104,28 +120,33 @@ __global__ void clahe_hist_kernel(const float* __restrict__ img,
   }
 }
 
-// Block (tile, slab) of a grid of tiles*tiles*slabs blocks; the `slabs`
-// blocks of a tile are one cluster.
+// Block (group, slab) of a grid of tiles*tiles/G*slabs blocks: a group is G
+// neighbouring tiles of one tile row (G = 1: one tile, the vector kernel);
+// the `slabs` blocks of a group are one cluster.
+template <int G>
 __global__ void clahe_hist_vec_kernel(const float* __restrict__ img,
                                       float* __restrict__ hist, int W, int th,
                                       int tw, int tiles, int n_bins, int slabs) {
-  extern __shared__ int wh[];  // [warps][n_bins]
+  extern __shared__ int wh[];  // [warps][G][n_bins]
   const int nw = blockDim.x >> 5;
-  const int tile = blockIdx.x / slabs;
-  const int slab = blockIdx.x - tile * slabs;
-  const int ty = tile / tiles;
-  const int tx = tile - ty * tiles;
+  const int group = blockIdx.x / slabs;
+  const int slab = blockIdx.x - group * slabs;
+  const int groups = tiles / G;  // a tile row's
+  const int ty = group / groups;
+  const int tx = (group - ty * groups) * G;  // the group's first tile
   const int r0 = slab * th / slabs;  // never empty: slabs <= th
   const int r1 = (slab + 1) * th / slabs;
-  const int c4 = tw >> 2, w4 = W >> 2;
+  const int c4 = (G * tw) >> 2, w4 = W >> 2;
   const int n = (r1 - r0) * c4;  // the slab's 16-byte vectors
+  const int nb = G * n_bins;     // a warp's counters
   const float4* base = reinterpret_cast<const float4*>(
       img + ((size_t)ty * th + r0) * W + (size_t)tx * tw);
-  int* mine = wh + (threadIdx.x >> 5) * n_bins;
+  int* mine = wh + (threadIdx.x >> 5) * nb;
   const float scale = (float)(n_bins - 1);
   const int step = blockDim.x;
 
   float4 v[kHistLoads];
+  int col[kHistLoads];  // G > 1: the vector's first column in the group
   auto load = [&](int i0) {
 #pragma unroll
     for (int k = 0; k < kHistLoads; ++k) {
@@ -133,23 +154,32 @@ __global__ void clahe_hist_vec_kernel(const float* __restrict__ img,
       if (i < n) {
         const int r = i / c4;
         v[k] = __ldg(base + (size_t)r * w4 + (i - r * c4));
+        if constexpr (G > 1) col[k] = 4 * (i - r * c4);
       }
     }
+  };
+  // the pixel's counter: its tile in the group (columns [t*tw, (t+1)*tw)), its bin
+  auto add = [&](float x, int c) {
+    int t = 0;
+    if constexpr (G > 1) t = (c >= tw);
+    if constexpr (G > 2) t += (c >= 2 * tw) + (c >= 3 * tw);
+    atomicAdd(&mine[t * n_bins + bin_of(x, scale)], 1);
   };
   auto count = [&](int i0) {
 #pragma unroll
     for (int k = 0; k < kHistLoads; ++k) {
       if (i0 + k * step < n) {
-        atomicAdd(&mine[bin_of(v[k].x, scale)], 1);
-        atomicAdd(&mine[bin_of(v[k].y, scale)], 1);
-        atomicAdd(&mine[bin_of(v[k].z, scale)], 1);
-        atomicAdd(&mine[bin_of(v[k].w, scale)], 1);
+        const int c = G > 1 ? col[k] : 0;
+        add(v[k].x, c);
+        add(v[k].y, c + 1);
+        add(v[k].z, c + 2);
+        add(v[k].w, c + 3);
       }
     }
   };
 
   load(threadIdx.x);  // in flight while the histograms are cleared
-  for (int i = threadIdx.x; i < nw * n_bins; i += step) wh[i] = 0;
+  for (int i = threadIdx.x; i < nw * nb; i += step) wh[i] = 0;
   __syncthreads();
   count(threadIdx.x);
   for (int i0 = threadIdx.x + kHistLoads * step; i0 < n; i0 += kHistLoads * step) {
@@ -158,17 +188,19 @@ __global__ void clahe_hist_vec_kernel(const float* __restrict__ img,
   }
   __syncthreads();
 
-  for (int b = threadIdx.x; b < n_bins; b += step) {
+  for (int b = threadIdx.x; b < nb; b += step) {
     int s = 0;
-    for (int w = 0; w < nw; ++w) s += wh[w * n_bins + b];
+    for (int w = 0; w < nw; ++w) s += wh[w * nb + b];
     wh[b] = s;
   }
+  // the group's G tiles are neighbours in the tile row-major result
+  float* out = hist + ((size_t)ty * tiles + tx) * n_bins;
   cg::cluster_group cluster = cg::this_cluster();
   cluster.sync();
-  for (int b = slab * step + threadIdx.x; b < n_bins; b += slabs * step) {
+  for (int b = slab * step + threadIdx.x; b < nb; b += slabs * step) {
     int s = 0;
     for (int k = 0; k < slabs; ++k) s += cluster.map_shared_rank(wh, k)[b];
-    hist[(size_t)tile * n_bins + b] = (float)s;
+    out[b] = (float)s;
   }
   cluster.sync();  // no block leaves while another reads its histogram
 }
@@ -301,9 +333,11 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned phase) {
       " @P1 bra DONE;\n bra LAB_WAIT;\n DONE:\n}\n" ::"r"(smem_addr(bar)), "r"(phase) : "memory");
 }
 
-// Block (blockIdx.x, blockIdx.y) takes block blockIdx.x of axis `ax` (4 * cx
-// columns at most, cx = 1 << cx_shift threads along x) by block blockIdx.y
-// of axis `ay` (`rows` rows at most).
+// Block (blockIdx.x, blockIdx.y) takes 4 * cx columns at most (cx = 1 <<
+// cx_shift threads along x) by block blockIdx.y of axis `ay` (`rows` rows at
+// most). kLattice (the vector kernel): the columns are block blockIdx.x of
+// axis `ax`; else (the aligned kernel) columns [4 * cx * blockIdx.x, +4 * cx).
+template <bool kLattice>
 __global__ void __launch_bounds__(kApplyThreads)
 clahe_apply_vec_kernel(const float* __restrict__ img, const float* __restrict__ cdf,
                        float* __restrict__ out, const Axis ay, const Axis ax,
@@ -317,10 +351,15 @@ clahe_apply_vec_kernel(const float* __restrict__ img, const float* __restrict__ 
   const int ry = kApplyThreads >> cx_shift;  // rows the block's threads cover at once
   int y_lo, y_hi, x_lo, x_hi;
   axis_block(ay, blockIdx.y, rows, y_lo, y_hi);
-  axis_block(ax, blockIdx.x, 4 * cx, x_lo, x_hi);
   const int W = ax.n, tiles = ax.tiles;
+  if constexpr (kLattice) {
+    axis_block(ax, blockIdx.x, 4 * cx, x_lo, x_hi);
+  } else {
+    x_lo = 4 * cx * blockIdx.x;
+    x_hi = min(x_lo + 4 * cx, W);
+  }
   const int x = x_lo + 4 * lx;
-  const bool live = x < x_hi;  // cells start and end on multiples of 4
+  const bool live = x < x_hi;  // blocks start and end on multiples of 4
 
   float4 v[kApplyLoads];
   auto load = [&](int y0) {
@@ -341,7 +380,7 @@ clahe_apply_vec_kernel(const float* __restrict__ img, const float* __restrict__ 
   lerp_taps(x_hi - 1, ax.span, tiles, unused, chi, u0, u1);
   const int nr = rhi - rlo + 1;
   const int nc = chi - clo + 1;
-  if (nr > kWin || nc > kWin) __trap();  // the block is not inside one lattice cell
+  if (nr > kWin || nc > kWin) __trap();  // the block spans more than two lattice cells
   const int row_len = nc * n_bins;  // tiles (r, clo..chi) are contiguous
 
   if (threadIdx.x == 0) {
@@ -403,7 +442,9 @@ bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
 }  // namespace
 
 // slabs = 0: the general kernel. slabs in 1..min(kHistMaxSlabs, th): the
-// vector kernel, the slabs of a tile merged through a cluster.
+// vector kernel (tw % 4 == 0) or the aligned one (groups of G = 4 / gcd(tw,
+// 4) tiles; tiles % G == 0), the slabs of a tile or group merged through a
+// cluster.
 extern "C" int lvt_clahe_hist(const void* img, void* hist, int H, int W, int tiles,
                               int n_bins, int slabs, void* stream) {
   const int th = H / tiles, tw = W / tiles;
@@ -416,33 +457,46 @@ extern "C" int lvt_clahe_hist(const void* img, void* hist, int H, int W, int til
         (const float*)img, (float*)hist, W, th, tw, tiles, n_bins);
     return (int)cudaGetLastError();
   }
-  if (slabs < 0 || slabs > std::min(kHistMaxSlabs, th) || W % 4 || tw % 4 || !aligned16(img))
+  const int g = tw % 4 == 0 ? 1 : tw % 2 == 0 ? 2 : 4;  // 4 / gcd(tw, 4)
+  if (slabs < 0 || slabs > std::min(kHistMaxSlabs, th) || W % 4 || tiles % g || !aligned16(img))
     return (int)cudaErrorInvalidValue;
-  // two 16-byte loads a thread where the slab is large enough
-  const int vectors = ((th + slabs - 1) / slabs) * (tw / 4);
-  const int warps = std::max(1, std::min({kHistVecWarps, fit, (vectors + 63) / 64}));
+  // two 16-byte loads a thread where the slab is large enough; one warp's
+  // G * n_bins counters may pass the 48 KB budget (G = 4 and n_bins > 3072)
+  const int vectors = ((th + slabs - 1) / slabs) * (g * tw / 4);
+  const int warps =
+      std::max(1, std::min({kHistVecWarps, fit / g, (vectors + 63) / 64}));
+  const size_t smem = (size_t)warps * g * n_bins * sizeof(int);
+  auto kernel = g == 1 ? &clahe_hist_vec_kernel<1>
+                       : g == 2 ? &clahe_hist_vec_kernel<2> : &clahe_hist_vec_kernel<4>;
+  if (smem > 48 * 1024) {
+    const cudaError_t e =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
   cudaLaunchAttribute attr;
   attr.id = cudaLaunchAttributeClusterDimension;
   attr.val.clusterDim.x = slabs;
   attr.val.clusterDim.y = 1;
   attr.val.clusterDim.z = 1;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(tiles * tiles * slabs);
+  cfg.gridDim = dim3(tiles * tiles / g * slabs);
   cfg.blockDim = dim3(warps * 32);
-  cfg.dynamicSmemBytes = (size_t)warps * n_bins * sizeof(int);
+  cfg.dynamicSmemBytes = smem;
   cfg.stream = (cudaStream_t)stream;
   cfg.attrs = &attr;
   cfg.numAttrs = 1;
-  const cudaError_t e = cudaLaunchKernelEx(&cfg, clahe_hist_vec_kernel, (const float*)img,
-                                           (float*)hist, W, th, tw, tiles, n_bins, slabs);
+  const cudaError_t e = cudaLaunchKernelEx(&cfg, kernel, (const float*)img, (float*)hist, W, th,
+                                           tw, tiles, n_bins, slabs);
   return e != cudaSuccess ? (int)e : (int)cudaGetLastError();
 }
 
-// rows = 0: the general kernel. Else the vector kernel in blocks of one
-// lattice cell's columns (a tile's width rounded up to a power of two, 256 at
-// most) by `rows` rows at most, on the lattice's own grid (make_axis).
+// rows = 0: the general kernel (cols unused). Else blocks of `rows` rows at
+// most of one lattice cell (make_axis) by, with cols = 0, the vector kernel's
+// columns of one lattice cell (a tile's width rounded up to a power of two,
+// 256 at most; tw % 8 == 0), or the aligned kernel's `cols` columns from
+// column 0 (a power of two from 4 to min(tw, 256)).
 extern "C" int lvt_clahe_apply(const void* img, const void* cdf, void* out, int H, int W,
-                               int tiles, int n_bins, int rows, void* stream) {
+                               int tiles, int n_bins, int rows, int cols, void* stream) {
   const int th = H / tiles, tw = W / tiles;
   if (rows == 0) {
     // tiles a block's rows / columns can touch: floor((n-1)/span) + 3, plus
@@ -463,23 +517,31 @@ extern "C" int lvt_clahe_apply(const void* img, const void* cdf, void* out, int 
         n_bins, cap_r, cap_c);
     return (int)cudaGetLastError();
   }
-  if (rows < 0 || rows > kApplyMaxRows || W % 4 || tw % 8 || n_bins % 4 || !aligned16(img) ||
+  if (rows < 0 || rows > kApplyMaxRows || W % 4 || n_bins % 4 || !aligned16(img) ||
       !aligned16(out) || !aligned16(cdf))
     return (int)cudaErrorInvalidValue;
+  if (cols == 0 ? tw % 8 != 0
+                : cols < 4 || cols > std::min(tw, kApplyThreads) || (cols & (cols - 1)))
+    return (int)cudaErrorInvalidValue;
   int cx_shift = 0;  // 4 << cx_shift columns a block
-  while ((4 << cx_shift) < tw && (4 << cx_shift) < kApplyThreads) ++cx_shift;
+  if (cols == 0) {
+    while ((4 << cx_shift) < tw && (4 << cx_shift) < kApplyThreads) ++cx_shift;
+  } else {
+    while ((4 << cx_shift) < cols) ++cx_shift;
+  }
   const Axis ay = make_axis(H, tiles, rows);
   const Axis ax = make_axis(W, tiles, 4 << cx_shift);
   const int side = std::min(tiles, kWin);
   const size_t smem = (size_t)side * side * n_bins * sizeof(float);
   if (smem > (size_t)kMaxSmem) return (int)cudaErrorInvalidValue;
+  auto kernel = cols == 0 ? &clahe_apply_vec_kernel<true> : &clahe_apply_vec_kernel<false>;
   if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        clahe_apply_vec_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    const cudaError_t e =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  clahe_apply_vec_kernel<<<dim3(ax.blocks, ay.blocks), kApplyThreads, smem,
-                           (cudaStream_t)stream>>>(
+  const int bx = cols == 0 ? ax.blocks : (W + cols - 1) / cols;
+  kernel<<<dim3(bx, ay.blocks), kApplyThreads, smem, (cudaStream_t)stream>>>(
       (const float*)img, (const float*)cdf, (float*)out, ay, ax, n_bins, rows, cx_shift);
   return (int)cudaGetLastError();
 }

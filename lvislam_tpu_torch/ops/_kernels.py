@@ -43,8 +43,8 @@ _SIGNATURES = {
     "lvt_gn_partials_pair": [_P, _P, _I, _P, _P, _I, _P, _P, _P, _P, _P],
     # img, hist, H, W, tiles, n_bins, slabs, stream
     "lvt_clahe_hist": [_P, _P, _I, _I, _I, _I, _I, _P],
-    # img, cdf, out, H, W, tiles, n_bins, rows, stream
-    "lvt_clahe_apply": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # img, cdf, out, H, W, tiles, n_bins, rows, cols, stream
+    "lvt_clahe_apply": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
 }
 
 

@@ -16,8 +16,9 @@ f32 plane fit is ill-conditioned, and rounding alone moves the sums past
 2e-4 of scale: on such cases the TPU kernel in interpret mode differs from
 the JAX XLA path by up to 8e-3 of scale. K3's counts and K4's pixels
 identical (K4 rounds every op on its own in the plain version's order), at
-the rig's 576x1024, at shapes that take each branch of the vector kernels
-and at shapes that take the general ones."""
+the rig's 576x1024, at the EuRoC camera's 480x752 (the aligned kernels), at
+shapes that take each branch of the vector and aligned kernels and at shapes
+that take the general ones."""
 
 import os
 
@@ -174,7 +175,15 @@ def _clahe_image(cuda, H, W):
     (576, 1024, 4, 1024),  # 8 slabs of 18 rows; 4 KB a warp histogram
     (584, 1024, 8, 256),   # th = 73: slabs of 18, 18, 18 and 19 rows
     (580, 1028, 8, 256),   # spare rows and 4 spare columns in the last lattice cells
-    (64, 96, 8, 256),      # tw = 12: the vector K3 with the general K4
+    (64, 96, 8, 256),      # tw = 12: the vector K3 with the aligned K4
+    (480, 752, 8, 256),    # the EuRoC camera: tw = 94, groups of 2 tiles, blocks of 64 columns
+    (480, 756, 8, 256),    # tw = 94 and 4 spare columns in the last block
+    (64, 72, 8, 256),      # tw = 9: groups of 4 tiles, blocks of 8 columns
+    (60, 88, 8, 1024),     # tw = 11, th = 7: 4 KB a tile's counters, 16 KB a warp's
+    (48, 32, 3, 256),      # tw = 10, 3 tiles: the general K3 (3 % 2), the aligned K4
+    (16, 8, 8, 256),       # tw = 1: the aligned K3 (groups of 4 one-column tiles), general K4
+    (40, 200, 4, 4096),    # tw = 50: one warp's 2 x 4096 counters
+    (40, 196, 4, 4096),    # tw = 49: one warp's 4 x 4096 counters, 64 KB
     (16, 64, 8, 256),      # th = 2: two slabs of one row
     (8, 8, 1, 256),        # one tile, the smallest vector shape
     (96, 256, 4, 4096),    # 3 warps a block in K3; K4's window over 48 KB
@@ -241,10 +250,11 @@ def test_clahe_kernels_back_to_back_and_in_a_cuda_graph(cuda):
         assert torch.equal(out, r)
 
 
-@pytest.mark.parametrize("H,W,tiles", [(576, 1024, 8), (148, 288, 4)])
+@pytest.mark.parametrize("H,W,tiles", [(576, 1024, 8), (148, 288, 4), (480, 752, 8)])
 def test_clahe_kernels_at_every_launch_size(cuda, H, W, tiles):
-    """The raw entry points at slab counts and rows a block other than the
-    wrappers' own choice, each twice into a result filled with -1."""
+    """The raw entry points at slab counts, rows a block and (the aligned
+    cut, also where tw % 8 == 0) columns a block other than the wrappers'
+    own choice, each twice into a result filled with -1."""
     from lvislam_tpu_torch.ops import _kernels
 
     lib = _kernels.library()
@@ -259,11 +269,15 @@ def test_clahe_kernels_at_every_launch_size(cuda, H, W, tiles):
             _kernels.check(lib.lvt_clahe_hist(img.data_ptr(), hist.data_ptr(), H, W, tiles, 256,
                                               slabs, stream), "lvt_clahe_hist")
             assert torch.equal(hist, h0), slabs
+    tw = W // tiles
+    widths = [c for c in (4, 8, 16, 32, 64, 128, 256) if c <= tw] + ([0] if tw % 8 == 0 else [])
     for rows in (0, 1, 5, 12, 24, 37, 64):
-        out = torch.full_like(img, -1.0)
-        _kernels.check(lib.lvt_clahe_apply(img.data_ptr(), cdf.data_ptr(), out.data_ptr(),
-                                           H, W, tiles, 256, rows, stream), "lvt_clahe_apply")
-        assert torch.equal(out, o0), rows
+        for cols in widths if rows else [0]:
+            out = torch.full_like(img, -1.0)
+            _kernels.check(lib.lvt_clahe_apply(img.data_ptr(), cdf.data_ptr(), out.data_ptr(),
+                                               H, W, tiles, 256, rows, cols, stream),
+                           "lvt_clahe_apply")
+            assert torch.equal(out, o0), (rows, cols)
 
 
 def test_clahe_on_the_card_equals_the_cpu(cuda):
@@ -296,10 +310,18 @@ def test_clahe_wrappers_refuse_bad_inputs_on_the_card(cuda):
     img = torch.zeros(H * W + 4, device=cuda)
     hist, cdf, out = (torch.zeros(s, device=cuda) for s in ((64, 256), (64, 256), (H, W)))
     p, off = img.data_ptr(), img[1:].data_ptr()
-    assert lib.lvt_clahe_apply(p, cdf.data_ptr(), out.data_ptr(), H, W, 8, 256, 65, stream) != 0
-    assert lib.lvt_clahe_apply(off, cdf.data_ptr(), out.data_ptr(), H, W, 8, 256, 24, stream) != 0
-    assert lib.lvt_clahe_apply(p, cdf.data_ptr(), out.data_ptr(), H, W - 2, 8, 256, 24, stream) != 0
+    c = cdf.data_ptr()
+    assert lib.lvt_clahe_apply(p, c, out.data_ptr(), H, W, 8, 256, 65, 0, stream) != 0
+    assert lib.lvt_clahe_apply(off, c, out.data_ptr(), H, W, 8, 256, 24, 0, stream) != 0
+    assert lib.lvt_clahe_apply(p, c, out.data_ptr(), H, W - 2, 8, 256, 24, 0, stream) != 0
     assert lib.lvt_clahe_hist(p, hist.data_ptr(), H, W, 8, 256, 9, stream) != 0
     assert lib.lvt_clahe_hist(off, hist.data_ptr(), H, W, 8, 256, 4, stream) != 0
     assert lib.lvt_clahe_hist(p, hist.data_ptr(), H, W - 2, 8, 256, 4, stream) != 0
+    # the aligned cut: a lattice cut at tw = 94 (cells on odd columns), blocks
+    # wider than a tile or not a power of two; K3 with tiles % G != 0
+    assert lib.lvt_clahe_apply(p, c, out.data_ptr(), 48, 752, 8, 256, 24, 0, stream) != 0
+    assert lib.lvt_clahe_apply(p, c, out.data_ptr(), 48, 752, 8, 256, 24, 128, stream) != 0
+    assert lib.lvt_clahe_apply(p, c, out.data_ptr(), 48, 752, 8, 256, 24, 48, stream) != 0
+    assert lib.lvt_clahe_apply(off, c, out.data_ptr(), 48, 752, 8, 256, 24, 64, stream) != 0
+    assert lib.lvt_clahe_hist(p, hist.data_ptr(), 30, 32, 3, 256, 2, stream) != 0
     torch.cuda.synchronize()

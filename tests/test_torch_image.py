@@ -30,7 +30,7 @@ def _t(a):
     return torch.from_numpy(np.array(a))
 
 
-@pytest.mark.parametrize("shape", [(240, 320), (64, 1024)])
+@pytest.mark.parametrize("shape", [(240, 320), (64, 1024), (480, 752)])
 def test_tile_hist_plain_equals_pallas(shape):
     img = _img(shape)
     bins = (np.clip(img, 0.0, 1.0) * 255).astype(np.int32)
@@ -40,11 +40,13 @@ def test_tile_hist_plain_equals_pallas(shape):
     assert got.sum() == (shape[0] // 8) * (shape[1] // 8) * 64
 
 
-def test_apply_cdf_plain_matches_pallas_apply_lut():
+@pytest.mark.parametrize("H,W", [(240, 320), (480, 752)])
+def test_apply_cdf_plain_matches_pallas_apply_lut(H, W):
     """K4's direct 4-tile form against the TPU kernel's separable 3-row
     form (its x-pass table and row weights formed as `image.clahe` forms
-    them), on the same CDF table."""
-    H, W, T, B = 240, 320, 8, 256
+    them), on the same CDF table; also at the EuRoC camera's 480x752, where
+    a tile is 94 columns wide."""
+    T, B = 8, 256
     img = _img((H, W), seed=1)
     rng = np.random.default_rng(2)
     cdf = np.cumsum(rng.random((T * T, B)).astype(np.float32), axis=1)
