@@ -56,7 +56,14 @@ Phases, one line each:
    by the port): ``torch.topk`` on K1's masked distances, ``torch.bincount``
    on K3's precomputed keys tile * 256 + bin, one 5-D ``F.grid_sample`` of
    the CDF volume at K4's precomputed coordinates (K3's and K4's also at
-   480x752 in phase 11).
+   480x752 in phase 11). Then the batched forms of K1 and K2 (one launch
+   for S = 4 sequences, as JAX's vmap gives the TPU kernels) on four
+   sequences at these shapes (the hashes stacked, four poses and query
+   offsets): K1 equal to its plain version and to 4 unbatched launches, K2
+   bit-equal to 4 unbatched launches and, a sequence, within 2e-4 of its
+   plain version's scale with n_res exact (as the pair launch is held);
+   each timed alone beside 4 single launches, against S times the
+   unbatched bound (``[batched_alone]``).
 
 9. IMU side: (a) ``navstate_predict`` over 60 s x 200 Hz of the figure-8's
    ideal IMU stream against ``navstate_predict_seq`` (the JAX parity test's
@@ -200,9 +207,13 @@ depth overlays at that stride.
    ``make_batched_step`` on a (batch 4, map 1) mesh over four sequences of 16
    scans starting at scans 0, 20, 40, 60 (features from the port's front
    end): each sequence's outputs and final state bit-equal (sha256) to its
-   own unbatched ``map_step`` run, the keyframe clouds distinct, K1 / K2
-   launched as the unbatched runs launch them; the ms of a lockstep step
-   beside 4 x an unbatched step; (d) ``make_batched_loop_step`` on that
+   own unbatched ``map_step`` run, the keyframe clouds distinct; the GN in
+   lockstep, one per device: K1 / K2 launched as many times as the
+   unbatched runs' per-step GN iterations imply (a step: its longest GN's
+   iterations of K2, its refreshes of K1), and fewer than the unbatched
+   runs launch them; the ms
+   and host syncs of a lockstep step beside 4 x an unbatched step (logged,
+   not gated); (d) ``make_batched_loop_step`` on that
    state with keyframe 0 made 100 s older (the ICP runs): equal to four
    unbatched ``loop_closure_step`` calls.
 23. lvi_pipelined (a spawned process beside phase 14): phase 14's
@@ -715,6 +726,66 @@ def alone_reporter(rec: dict):
     return report
 
 
+K1_K = 5  # neighbours a query
+
+
+def k1_set(cand, want, off, B, dev):
+    """A K1 query set for timing: its fresh outputs, bytes, operations and
+    enough copies of its inputs to find them cold in L2."""
+    import torch
+
+    Q = cand.shape[0]
+    outs = (torch.empty((Q, K1_K), device=dev),
+            torch.empty((Q, K1_K), dtype=torch.int32, device=dev))
+    n_bytes = nbytes((cand, want, off, *outs))
+    return {"Q": Q, "B": B, "outs": outs, "bytes": n_bytes,
+            "flops": Q * 27 * B * 8,  # 3 offset adds, 3 squares, 2 adds a candidate
+            "inputs": (cand, want, off), "copies": cold_copies((cand, want, off), n_bytes)}
+
+
+def k1_rows(qs, lo: int, hi: int):
+    """Rows [lo, hi) of a `k1_set` (views of its inputs, copies, outputs)."""
+    return {"Q": hi - lo, "B": qs["B"], "outs": tuple(o[lo:hi] for o in qs["outs"]),
+            "copies": [[t[lo:hi] for t in c] for c in qs["copies"]]}
+
+
+def k1_launch(pairs):
+    """`launch(i, stream)` of the raw K1 pair entry point: one launch for
+    each (corner set, surf set) of `pairs` (None for an empty set), on
+    copy i of their inputs."""
+    from lvislam_tpu_torch.ops import _kernels
+
+    lib = _kernels.library()
+
+    def launch(i, stream):
+        for pair in pairs:
+            args = []
+            for qs in pair:
+                if qs is None:
+                    args += [None] * 5 + [0, 0]
+                    continue
+                c, w, o = qs["copies"][i % len(qs["copies"])]
+                args += [c.data_ptr(), w.data_ptr(), o.data_ptr(), qs["outs"][0].data_ptr(),
+                         qs["outs"][1].data_ptr(), qs["Q"], qs["B"]]
+            _kernels.check(lib.lvt_knn_tail_pair(*args, K1_K, stream), "lvt_knn_tail_pair")
+    return launch
+
+
+def k1_library_ms(sets) -> float:
+    """The library yardstick for K1's selection half: torch.topk on the
+    precomputed masked distances of each set (the port never calls it)."""
+    import torch
+
+    ms = 0.0
+    for qs in sets:
+        (c, w, o), Q, B = qs["inputs"], qs["Q"], qs["B"]
+        cc, oo = c.reshape(Q, 27, 4, B), o.reshape(Q, 3, 27)
+        d = sum((cc[:, :, i, :].float() + oo[:, i, :, None]) ** 2 for i in range(3))
+        d = torch.where(cc[:, :, 3, :].int() == w[:, :, None], d, 1e10).reshape(Q, 27 * B)
+        ms += cuda_ms(lambda d=d: torch.topk(d, K1_K, dim=1, largest=False))
+    return ms
+
+
 def kernel_alone(sets, blocks, par, frame, dev, sweep: bool = False):
     """Phase 8: each kernel's raw entry point alone, CUDA-graph timed at the
     main path's shapes (K1's two query sets `sets`, K2's two classes'
@@ -731,46 +802,15 @@ def kernel_alone(sets, blocks, par, frame, dev, sweep: bool = False):
 
     # ---- K1: the pair launch, each query set alone, and one query (the
     # launch's latency floor) ----
-    k = 5
-
-    def k1_set(cand, want, off, B):
-        Q = cand.shape[0]
-        outs = (torch.empty((Q, k), device=dev), torch.empty((Q, k), dtype=torch.int32, device=dev))
-        n_bytes = nbytes((cand, want, off, *outs))
-        return {"Q": Q, "B": B, "outs": outs, "bytes": n_bytes,
-                "flops": Q * 27 * B * 8,  # 3 offset adds, 3 squares, 2 adds a candidate
-                "inputs": (cand, want, off), "copies": cold_copies((cand, want, off), n_bytes)}
-
-    def k1_launch(pair):  # (corner set, surf set), None for an empty one
-        def launch(i, stream):
-            args = []
-            for s in pair:
-                if s is None:
-                    args += [None] * 5 + [0, 0]
-                    continue
-                c, w, o = s["copies"][i % len(s["copies"])]
-                args += [c.data_ptr(), w.data_ptr(), o.data_ptr(), s["outs"][0].data_ptr(),
-                         s["outs"][1].data_ptr(), s["Q"], s["B"]]
-            _kernels.check(lib.lvt_knn_tail_pair(*args, k, stream), "lvt_knn_tail_pair")
-        return launch
-
-    k1 = [k1_set(*s) for s in sets]
-    one = k1_set(*(t[:1] for t in sets[0][:3]), sets[0][3])
+    k1 = [k1_set(*qs, dev) for qs in sets]
+    one = k1_set(*(t[:1] for t in sets[0][:3]), sets[0][3], dev)
     for name, pair in (("K1_corner", (k1[0], None)), ("K1_surf", (None, k1[1])),
                        ("K1_pair", k1), ("K1_one_query", (one, None))):
-        used = [s for s in pair if s is not None]
-        report(name, graph_us(k1_launch(pair)), sum(s["bytes"] for s in used),
-               sum(s["flops"] for s in used), ",".join(f"Q={s['Q']},B={s['B']}" for s in used))
-    # the library yardstick for K1's selection half: torch.topk on the
-    # precomputed masked distances (the port never calls it)
-    lib_ms = 0.0
-    for s in k1:
-        (c, w, o), Q, B = s["inputs"], s["Q"], s["B"]
-        cc, oo = c.reshape(Q, 27, 4, B), o.reshape(Q, 3, 27)
-        d = sum((cc[:, :, i, :].float() + oo[:, i, :, None]) ** 2 for i in range(3))
-        d = torch.where(cc[:, :, 3, :].int() == w[:, :, None], d, 1e10).reshape(Q, 27 * B)
-        lib_ms += cuda_ms(lambda d=d: torch.topk(d, k, dim=1, largest=False))
-    rec["K1_pair"]["library_ms"] = lib_ms
+        used = [qs for qs in pair if qs is not None]
+        report(name, graph_us(k1_launch([pair])), sum(qs["bytes"] for qs in used),
+               sum(qs["flops"] for qs in used),
+               ",".join(f"Q={qs['Q']},B={qs['B']}" for qs in used))
+    rec["K1_pair"]["library_ms"] = k1_library_ms(k1)
 
     # ---- K2: the pair launch, each class alone, and one point of each (the
     # latency floor); inputs stay in L2, as on the main path, where they are
@@ -799,6 +839,154 @@ def kernel_alone(sets, blocks, par, frame, dev, sweep: bool = False):
 
     clahe_alone(frame, dev, report, sweep)
     return rec
+
+
+BATCH_S = 4  # sequences of the batched kernels' phase-8 checks (phase 22c's count)
+
+
+def batched_inputs(parity, S: int):
+    """S sequences at the steady scan's shapes from the parity inputs: the
+    maps' hashes stacked S times, seen from S poses, each sequence's
+    queries moved by an offset of its own. Returns (K1's stacked query sets,
+    each sequence's pair of sets, K2's stacked class blocks, each
+    sequence's blocks, the stacked poses (S, 39))."""
+    import numpy as np
+    import torch
+
+    from lvislam_tpu_torch.ops import voxel_hash as vh
+
+    corner, surf, h_c, h_s, q_c, q_s, x6 = parity
+    dev = x6.device
+    rng = np.random.default_rng(7)
+    f32 = lambda a: torch.as_tensor(a.astype(np.float32), device=dev)
+    shifts = [f32(rng.normal(0, 0.2, 3)) for _ in range(S)]
+    x6s = [x6 + f32(rng.normal(0, 0.01, 6)) for _ in range(S)]
+    qcs = torch.stack([q_c + d for d in shifts])
+    qss = torch.stack([q_s - d for d in shifts])
+    hcb, hsb = vh.stack([h_c] * S), vh.stack([h_s] * S)
+    sets = [vh._query_set_batched(hcb, vh.query_gather_batched(hcb, qcs), qcs),
+            vh._query_set_batched(hsb, vh.query_gather_batched(hsb, qss), qss)]
+    singles = [(knn_set(h_c, qcs[i]), knn_set(h_s, qss[i])) for i in range(S)]
+    blk = [(gn_blocks(h_c, corner, qcs[i], x6s[i]), gn_blocks(h_s, surf, qss[i], x6s[i]))
+           for i in range(S)]
+    blocks = [tuple(torch.stack([b[c][j] for b in blk]) for j in (0, 1)) for c in (0, 1)]
+    return sets, singles, blocks, blk, torch.stack([gn_pose(x) for x in x6s])
+
+
+def batched_alone(parity, dev, rec, S: int = BATCH_S):
+    """Phase 8 for the batched forms of K1 and K2 (``knn_tail_batched``,
+    ``gn_partials_pair_batched``) at S sequences of the steady scan's
+    shapes: K1's result equal to its plain version and to S unbatched pair
+    launches, K2's bit-equal to S unbatched pair launches and each
+    sequence's within 2e-4 of its plain version's scale, n_res exact (the
+    plain version sums in another order); then each raw
+    entry point alone, CUDA-graph timed (K1's inputs cold in L2, K2's in L2
+    as on the main path), beside S single launches, against its bound (S
+    times the unbatched one). Adds the records to `rec` and returns the
+    wrappers' error, ms and plain ms for the kernels line."""
+    import torch
+
+    from lvislam_tpu_torch.ops import _kernels
+    from lvislam_tpu_torch.ops import gn_partials as gnp
+    from lvislam_tpu_torch.ops import knn_tail as kt
+
+    sets, singles, blocks, blk, pars = batched_inputs(parity, S)
+    report = alone_reporter(rec)
+    lib = _kernels.library()
+    out = {}
+
+    # ---- K1 ----
+    got = kt.knn_tail_batched(sets, S, k=K1_K)
+    plain = [kt.knn_tail_plain(*qs, k=K1_K) for qs in sets]
+    one = [kt.knn_tail_pair(*pair, k=K1_K) for pair in singles]
+    torch.cuda.synchronize()
+    for c, name in enumerate(("corner", "surf")):
+        d, p = got[c]
+        if not (torch.equal(p.reshape(-1, K1_K), plain[c][1])
+                and bits_equal((d.reshape(-1, K1_K),), (plain[c][0],))):
+            raise AssertionError(f"K1 batched {name}: differs from the plain version")
+        for i in range(S):
+            if not (torch.equal(p[i], one[i][c][1]) and bits_equal((d[i],), (one[i][c][0],))):
+                raise AssertionError(f"K1 batched {name}: sequence {i} differs from its "
+                                     "unbatched launch")
+    out["K1_batched"] = {
+        "max_abs_err": max(float((got[c][0].reshape(-1, K1_K) - plain[c][0]).abs().max())
+                           for c in (0, 1)),
+        "ms": cuda_ms(lambda: kt.knn_tail_batched(sets, S, k=K1_K)),
+        "plain_ms": cuda_ms(lambda: [kt.knn_tail_plain(*qs, k=K1_K) for qs in sets], 10, 2)}
+    k1 = [k1_set(*qs, dev) for qs in sets]
+    n_bytes, n_flops = sum(qs["bytes"] for qs in k1), sum(qs["flops"] for qs in k1)
+    shape = f"S={S}," + ",".join(f"Q={qs['Q'] // S},B={qs['B']}" for qs in k1)
+    r = report(f"K1_batched_S{S}", graph_us(k1_launch([k1])), n_bytes, n_flops, shape)
+    qc, qs_ = k1[0]["Q"] // S, k1[1]["Q"] // S
+    per = [(k1_rows(k1[0], i * qc, (i + 1) * qc), k1_rows(k1[1], i * qs_, (i + 1) * qs_))
+           for i in range(S)]
+    r1 = report(f"K1_pair_x{S}", graph_us(k1_launch(per)), n_bytes, n_flops, shape)
+    r["library_ms"] = k1_library_ms(k1)
+    log("batched_alone", kernel="K1", sequences=S, equal_plain=True, equal_unbatched=True,
+        kernel_us=round(r["kernel_us"], 3), singles_us=round(r1["kernel_us"], 3),
+        bound_us=round(r["bound_us"], 4), bound_share=round(r["bound_share"], 4),
+        singles_over_batched=round(r1["kernel_us"] / r["kernel_us"], 3),
+        ms=round(out["K1_batched"]["ms"], 4), plain_ms=round(out["K1_batched"]["plain_ms"], 4))
+
+    # ---- K2 ----
+    (c_pts, c_nbr), (s_pts, s_nbr) = blocks
+    H, g, n = gnp.gn_partials_pair_batched(c_pts, c_nbr, s_pts, s_nbr, pars)
+    ones = [gnp.gn_partials_pair(*b[0], *b[1], pars[i]) for i, b in enumerate(blk)]
+    H0, g0, n0 = gnp.gn_partials_pair_batched_plain(c_pts, c_nbr, s_pts, s_nbr, pars)
+    torch.cuda.synchronize()
+    for i in range(S):
+        if not bits_equal((H[i], g[i], n[i]), ones[i]):
+            raise AssertionError(f"K2 batched: sequence {i} differs from its unbatched launch")
+        # against the plain version as check_gn_pair holds the pair launch
+        if int(n[i]) != int(n0[i]):
+            raise AssertionError(f"K2 batched: sequence {i} n_res {int(n[i])} vs plain "
+                                 f"{int(n0[i])}")
+        torch.testing.assert_close(H[i], H0[i], rtol=2e-4,
+                                   atol=2e-4 * max(float(H0[i].abs().max()), 1e-6))
+        torch.testing.assert_close(g[i], g0[i], rtol=2e-4,
+                                   atol=2e-4 * max(float(g0[i].abs().max()), 1e-6))
+    out["K2_batched"] = {
+        "max_abs_err": max(float((H - H0).abs().max()), float((g - g0).abs().max())),
+        "ms": cuda_ms(lambda: gnp.gn_partials_pair_batched(c_pts, c_nbr, s_pts, s_nbr, pars)),
+        "plain_ms": cuda_ms(lambda: gnp.gn_partials_pair_batched_plain(
+            c_pts, c_nbr, s_pts, s_nbr, pars), 10, 2)}
+    Nc, Ns = c_pts.shape[2], s_pts.shape[2]
+    nb = (Nc + 127) // 128 + (Ns + 127) // 128
+    rows, tickets = torch.empty((S, nb, 28), device=dev), torch.zeros(S, dtype=torch.int32,
+                                                                       device=dev)
+    res = torch.empty((S, 43), device=dev)
+    rows1, ticket1, res1 = (torch.empty((nb, 28), device=dev),
+                            torch.zeros(1, dtype=torch.int32, device=dev),
+                            torch.empty(43, device=dev))
+
+    def launch_batched(i, stream):
+        _kernels.check(lib.lvt_gn_partials_pair_batched(
+            c_pts.data_ptr(), c_nbr.data_ptr(), Nc, s_pts.data_ptr(), s_nbr.data_ptr(), Ns, S,
+            pars.data_ptr(), rows.data_ptr(), tickets.data_ptr(), res.data_ptr(), stream),
+            "lvt_gn_partials_pair_batched")
+
+    def launch_singles(i, stream):
+        for j in range(S):
+            _kernels.check(lib.lvt_gn_partials_pair(
+                c_pts[j].data_ptr(), c_nbr[j].data_ptr(), Nc, s_pts[j].data_ptr(),
+                s_nbr[j].data_ptr(), Ns, pars[j].data_ptr(), rows1.data_ptr(),
+                ticket1.data_ptr(), res1.data_ptr(), stream), "lvt_gn_partials_pair")
+
+    n_bytes = nbytes((c_pts, c_nbr, s_pts, s_nbr, pars, res))
+    n_flops = S * (Nc * K2_FLOPS_PER_POINT["corner"] + Ns * K2_FLOPS_PER_POINT["surf"])
+    shape = f"S={S},corner:N={Nc},surf:N={Ns}"
+    r = report(f"K2_batched_S{S}", graph_us(launch_batched), n_bytes, n_flops, shape)
+    r1 = report(f"K2_pair_x{S}", graph_us(launch_singles), n_bytes, n_flops, shape)
+    log("batched_alone", kernel="K2", sequences=S, equal_unbatched=True, within_plain=True,
+        n_res=",".join(str(int(x)) for x in n.tolist()),
+        plain_n_res=",".join(str(int(x)) for x in n0.tolist()),
+        max_abs_err=out["K2_batched"]["max_abs_err"], H_scale=float(H0.abs().max()),
+        kernel_us=round(r["kernel_us"], 3), singles_us=round(r1["kernel_us"], 3),
+        bound_us=round(r["bound_us"], 4), bound_share=round(r["bound_share"], 4),
+        singles_over_batched=round(r1["kernel_us"] / r["kernel_us"], 3),
+        ms=round(out["K2_batched"]["ms"], 4), plain_ms=round(out["K2_batched"]["plain_ms"], 4))
+    return out
 
 
 def clahe_alone(frame, dev, report, sweep: bool, tag: str = ""):
@@ -2859,15 +3047,16 @@ def step_digest(outs, state) -> str:
 
 def unbatched_runs(caps, params, steps, dev):
     """Each sequence of `steps` through `map_step` alone: (digests, final
-    states, seconds a step of one sequence, K1 and K2 launches)."""
-    import torch
-
+    states, seconds a step of one sequence, K1 and K2 launches and host
+    syncs, the GN iterations of each step (rows) and sequence (columns))."""
+    from lvislam_tpu_torch.core import hostsync
     from lvislam_tpu_torch.models.lio import mapping
     from lvislam_tpu_torch.ops import gn_partials as gnp
     from lvislam_tpu_torch.ops import knn_tail as kt
 
     kt.LAUNCHES = gnp.LAUNCHES = 0
-    digests, states, times = [], [], []
+    hostsync.reset()
+    digests, states, times, per_seq = [], [], [], []
     for b in range(len(steps[0])):
         st, outs = mapping.lio_init(caps, dev), []
         for step in steps:
@@ -2880,7 +3069,23 @@ def unbatched_runs(caps, params, steps, dev):
             outs.append(out)
         digests.append(step_digest(outs, st))
         states.append(st)
-    return digests, states, times, {"K1": kt.LAUNCHES, "K2": gnp.LAUNCHES}
+        per_seq.append(outs)
+    launches = {"K1": kt.LAUNCHES, "K2": gnp.LAUNCHES, "host_syncs": hostsync.COUNT}
+    iters = [[int(o.gn_iters) for o in row] for row in zip(*per_seq)]
+    return digests, states, times, launches, iters
+
+
+def lockstep_launches(iters, params) -> dict:
+    """The K1 and K2 launches of the lockstep GN for the GN iterations
+    `iters` of each step (rows) and sequence (columns; 0 where the gate
+    failed), on one device: a step runs as many iterations as its longest
+    GN, each one K2 launch, and K1 once a refresh (both classes in one
+    launch with gather-once, else one a class)."""
+    r = params.nnRefreshEvery
+    per_refresh = 1 if params.gatherOncePerScan else 2
+    k2 = sum(max(row) for row in iters)
+    k1 = sum(-(-max(row) // r) * per_refresh for row in iters)
+    return {"K1": k1, "K2": k2}
 
 
 def batched_run(caps, params, steps, mesh, dev):
@@ -2889,6 +3094,7 @@ def batched_run(caps, params, steps, mesh, dev):
     K2 launches)."""
     import torch
 
+    from lvislam_tpu_torch.core import hostsync
     from lvislam_tpu_torch.models.lio.frontend import FeatureResult
     from lvislam_tpu_torch.ops import gn_partials as gnp
     from lvislam_tpu_torch.ops import knn_tail as kt
@@ -2897,6 +3103,7 @@ def batched_run(caps, params, steps, mesh, dev):
     B = len(steps[0])
     step_fn = batch_replay.make_batched_step(caps, params, mesh)
     kt.LAUNCHES = gnp.LAUNCHES = 0
+    hostsync.reset()
     state = batch_replay.batched_lio_init(caps, B, mesh)
     outs, times = [], []
     for step in steps:
@@ -2908,7 +3115,7 @@ def batched_run(caps, params, steps, mesh, dev):
         drain(dev)
         times.append(time.perf_counter() - t0)
         outs.append(pmesh.tree_map(pmesh.gather, out))
-    launches = {"K1": kt.LAUNCHES, "K2": gnp.LAUNCHES}
+    launches = {"K1": kt.LAUNCHES, "K2": gnp.LAUNCHES, "host_syncs": hostsync.COUNT}
     whole = pmesh.tree_map(pmesh.gather, state)
     digests = [step_digest([pmesh.tree_map(lambda x, b=b: x[b], o) for o in outs],
                            pmesh.tree_map(lambda x, b=b: x[b], whole)) for b in range(B)]
@@ -3006,9 +3213,17 @@ def multi_device_phase(cfg, scans, dev, n_warm: int = MD_STEADY_SCAN, maps=MD_MA
     # (c) the batched LIO step: four sequences in lockstep on (batch 4, map 1)
     caps, params = cfg.caps, cfg.params
     steps = sequence_inputs(LioPipeline(cfg, device=dev), scans, starts, n_steps)
-    ref_d, ref_states, t_one, k_one = unbatched_runs(caps, params, steps, dev)
+    ref_d, ref_states, t_one, k_one, iters = unbatched_runs(caps, params, steps, dev)
     mesh, which = phase_mesh(len(starts), 1)
     got_d, bstate, t_b, k_b = batched_run(caps, params, steps, mesh, dev)
+    # one lockstep GN a device: on one card all sequences share it
+    devs = [str(d) for d in mesh.slot_devices("batch")]
+    want = {"K1": 0, "K2": 0}
+    for d in sorted(set(devs)):
+        cols = [b for b in range(len(starts)) if devs[b * len(devs) // len(starts)] == d]
+        for key, n in lockstep_launches([[row[b] for b in cols] for row in iters],
+                                        params).items():
+            want[key] += n
     whole = pmesh.tree_map(pmesh.gather, bstate)
     surf0 = [whole.kf_surf[b, 0] for b in range(len(starts))]
     distinct = all(not torch.equal(surf0[a], surf0[b])
@@ -3020,16 +3235,22 @@ def multi_device_phase(cfg, scans, dev, n_warm: int = MD_STEADY_SCAN, maps=MD_MA
         starts=",".join(map(str, starts)), keyframes=",".join(
             str(int(k)) for k in whole.kf_count.tolist()),
         identical=got_d == ref_d, digests=",".join(got_d), clouds_distinct=distinct,
-        launches_K1=k_b["K1"], launches_K2=k_b["K2"], unbatched_K1=k_one["K1"],
-        unbatched_K2=k_one["K2"], lockstep_step_ms=round(step_ms, 2),
-        four_unbatched_steps_ms=round(len(starts) * one_ms, 2))
+        launches_K1=k_b["K1"], launches_K2=k_b["K2"],
+        lockstep_K1=want["K1"], lockstep_K2=want["K2"],
+        unbatched_K1=k_one["K1"], unbatched_K2=k_one["K2"],
+        gn_iters=";".join(",".join(map(str, row)) for row in iters),
+        host_syncs=k_b["host_syncs"], unbatched_host_syncs=k_one["host_syncs"],
+        lockstep_step_ms=round(step_ms, 2), four_unbatched_steps_ms=round(len(starts) * one_ms, 2))
     if got_d != ref_d:
         raise AssertionError(f"multi_device batch: sequences differ from their unbatched runs "
                              f"({got_d} vs {ref_d})")
     if not distinct:
         raise AssertionError("multi_device batch: two sequences stored the same keyframe cloud")
-    if k_b != k_one or min(k_b.values()) <= 0:
-        raise AssertionError(f"multi_device batch: launches {k_b} vs unbatched {k_one}")
+    got_k = {key: k_b[key] for key in want}
+    if (got_k != want or min(want.values()) <= 0
+            or not (want["K1"] < k_one["K1"] and want["K2"] < k_one["K2"])):
+        raise AssertionError(f"multi_device batch: launches {got_k} vs the lockstep counts "
+                             f"{want} (unbatched {k_one})")
 
     # (d) the batched loop closure, keyframe 0 of every sequence made 100 s
     # older so the time gate opens and the submap ICP runs
@@ -3606,6 +3827,7 @@ def run_phases(pool, phases, dev) -> int:
     alone = kernel_alone([knn_set(h_c, q_c), knn_set(h_s, q_s)],
                          [gn_blocks(h_c, corner, q_c, x6), gn_blocks(h_s, surf, q_s, x6)],
                          gn_pose(x6), frames[0], dev, sweep="--sweep" in sys.argv)
+    batched = batched_alone((corner, surf, h_c, h_s, q_c, q_s, x6), dev, alone)
 
     # ---- 9. the IMU side: dead reckoning, the smoother over the replay ----
     from lvislam_tpu_torch.utils import anchors
@@ -3703,8 +3925,6 @@ def run_phases(pool, phases, dev) -> int:
         by_path[key]["lvi_replay_full"] = rep25["launches"][key]
         if key in batched_k:
             by_path[key]["lio_upload_batch"] = batched_k[key]
-        if key in md:
-            by_path[key]["multi_device_batch"] = md[key]
         if key in euroc_k:
             by_path[key]["euroc_entry"] = euroc_k[key]
         by_path[key]["tools"] = tools_k[key]
@@ -3742,6 +3962,20 @@ def run_phases(pool, phases, dev) -> int:
          "launches": launches["K2"], "launches_by_path": by_path["K2"],
          "max_abs_err": e2,
          "ms": m2, "plain_ms": p2, **timing("K2_pair")},
+        {"name": "knn_tail_batched", "route": "cuda",
+         "source": "lvislam_tpu_torch/csrc/knn_tail.cu",
+         "replaces": "lvislam_tpu/ops/pallas_knn.py:112",
+         "launches": md["K1"], "launches_by_path": {"multi_device_batch": md["K1"]},
+         **batched["K1_batched"], **timing(f"K1_batched_S{BATCH_S}"), "sequences": BATCH_S,
+         "singles_us": alone[f"K1_pair_x{BATCH_S}"]["kernel_us"],
+         "library": "torch.topk(d, 5, largest=False) on the masked distances of all "
+                    "sequences: the selection half only"},
+        {"name": "gn_partials_batched", "route": "cuda",
+         "source": "lvislam_tpu_torch/csrc/gn_partials.cu",
+         "replaces": "lvislam_tpu/ops/pallas_gn.py:382",
+         "launches": md["K2"], "launches_by_path": {"multi_device_batch": md["K2"]},
+         **batched["K2_batched"], **timing(f"K2_batched_S{BATCH_S}"), "sequences": BATCH_S,
+         "singles_us": alone[f"K2_pair_x{BATCH_S}"]["kernel_us"]},
         {"name": "tile_hist", "route": "cuda",
          "source": "lvislam_tpu_torch/csrc/clahe.cu",
          "replaces": "lvislam_tpu/ops/pallas_clahe.py:53",

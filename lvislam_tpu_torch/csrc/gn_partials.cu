@@ -12,7 +12,11 @@
 // CPU backend does for the reference.
 //
 // One launch per Gauss-Newton iteration: the grid is the corner class's
-// blocks followed by the surf class's, 128 points a block. A fixed-order
+// blocks followed by the surf class's, 128 points a block. The batched entry
+// point (lvt_gn_partials_pair_batched: S sequences of equal sizes, as JAX's
+// vmap of the step gives the TPU kernel) adds the grid's y axis: blockIdx.y
+// picks the sequence, whose blocks, scratch rows, ticket and output are its
+// own, so each sequence's sums are those of its own unbatched launch. A fixed-order
 // tree reduces each block to one row of 28 partial sums (two levels in
 // shared memory, five by warp shuffles: the same pairs), written to a
 // scratch row. Each block then takes an integer ticket; the last block to
@@ -246,6 +250,16 @@ __global__ void gn_partials_pair_kernel(ClassBlocks corner, ClassBlocks surf,
                                         const float* __restrict__ par,
                                         float* rows, int* ticket,
                                         float* __restrict__ out) {
+  // sequence blockIdx.y of a batched launch (0 for the unbatched one)
+  const int seq = blockIdx.y;
+  corner.pts += (size_t)seq * 8 * corner.N;
+  corner.nbr += (size_t)seq * 24 * corner.N;
+  surf.pts += (size_t)seq * 8 * surf.N;
+  surf.nbr += (size_t)seq * 24 * surf.N;
+  par += (size_t)seq * 39;
+  rows += (size_t)seq * gridDim.x * kParts;
+  ticket += seq;
+  out += (size_t)seq * 43;
   __shared__ float red[kParts][kThreads];
   __shared__ float tot[kParts];
   __shared__ float cls_tot[2][kParts];
@@ -373,20 +387,35 @@ __global__ void gn_partials_pair_kernel(ClassBlocks corner, ClassBlocks surf,
   if (tid == 0) *ticket = 0;
 }
 
+int launch(const void* c_pts, const void* c_nbr, int Nc, const void* s_pts,
+           const void* s_nbr, int Ns, int S, const void* par, void* rows, void* ticket,
+           void* out, void* stream) {
+  const ClassBlocks corner{(const float*)c_pts, (const float*)c_nbr, Nc,
+                           (Nc + kThreads - 1) / kThreads};
+  const ClassBlocks surf{(const float*)s_pts, (const float*)s_nbr, Ns,
+                         (Ns + kThreads - 1) / kThreads};
+  if (Nc < 0 || Ns < 0 || S < 1 || S > 65535 || corner.blocks + surf.blocks == 0)
+    return (int)cudaErrorInvalidValue;
+  gn_partials_pair_kernel<<<dim3(corner.blocks + surf.blocks, S), kThreads, 0,
+                            (cudaStream_t)stream>>>(
+      corner, surf, (const float*)par, (float*)rows, (int*)ticket, (float*)out);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" int lvt_gn_partials_pair(const void* c_pts, const void* c_nbr, int Nc,
                                     const void* s_pts, const void* s_nbr, int Ns,
                                     const void* par, void* rows, void* ticket,
                                     void* out, void* stream) {
-  const ClassBlocks corner{(const float*)c_pts, (const float*)c_nbr, Nc,
-                           (Nc + kThreads - 1) / kThreads};
-  const ClassBlocks surf{(const float*)s_pts, (const float*)s_nbr, Ns,
-                         (Ns + kThreads - 1) / kThreads};
-  if (Nc < 0 || Ns < 0 || corner.blocks + surf.blocks == 0)
-    return (int)cudaErrorInvalidValue;
-  gn_partials_pair_kernel<<<corner.blocks + surf.blocks, kThreads, 0,
-                            (cudaStream_t)stream>>>(
-      corner, surf, (const float*)par, (float*)rows, (int*)ticket, (float*)out);
-  return (int)cudaGetLastError();
+  return launch(c_pts, c_nbr, Nc, s_pts, s_nbr, Ns, 1, par, rows, ticket, out, stream);
+}
+
+// S sequences: c_pts (S, 8, Nc), c_nbr (S, 24, Nc), s_* likewise with Ns,
+// par (S, 39), rows (S, blocks, 28), ticket (S,) int32, out (S, 43)
+extern "C" int lvt_gn_partials_pair_batched(const void* c_pts, const void* c_nbr, int Nc,
+                                            const void* s_pts, const void* s_nbr, int Ns,
+                                            int S, const void* par, void* rows, void* ticket,
+                                            void* out, void* stream) {
+  return launch(c_pts, c_nbr, Nc, s_pts, s_nbr, Ns, S, par, rows, ticket, out, stream);
 }

@@ -798,9 +798,11 @@ class LviSystem:
         (`feature_tracker_node.cpp:98-270`, `estimator_node.cpp:258-303`).
         PyTorch queues a device's launches asynchronously, so stage T's
         launches for frame k go out before stage E's for frame k-1."""
+        # the reference's disorder guard: this path never sets
+        # last_image_time (stage E keeps its own stamp), so the guard drops
+        # no frame here, as in the JAX package
         if self.last_image_time >= 0 and stamp <= self.last_image_time:
-            return  # duplicated/stale frame: disorder drop (see _on_lidar)
-        self.last_image_time = stamp
+            return
         cfg = self.cfg
         img_np = np.asarray(msg["image"])
         tf_ok = self.vins_odom is not None and np.isfinite(self.vins_odom["trans"]).all()

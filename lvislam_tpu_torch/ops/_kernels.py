@@ -41,6 +41,8 @@ _SIGNATURES = {
     "lvt_knn_tail_pair": [_P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     # c_pts, c_nbr, Nc, s_pts, s_nbr, Ns, par, rows, ticket, out, stream
     "lvt_gn_partials_pair": [_P, _P, _I, _P, _P, _I, _P, _P, _P, _P, _P],
+    # c_pts, c_nbr, Nc, s_pts, s_nbr, Ns, S, par, rows, tickets, out, stream
+    "lvt_gn_partials_pair_batched": [_P, _P, _I, _P, _P, _I, _I, _P, _P, _P, _P, _P],
     # img, hist, H, W, tiles, n_bins, slabs, stream
     "lvt_clahe_hist": [_P, _P, _I, _I, _I, _I, _I, _P],
     # img, cdf, out, H, W, tiles, n_bins, rows, cols, stream

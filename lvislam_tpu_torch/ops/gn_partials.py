@@ -29,6 +29,15 @@ and the block sums; its 330 KB take 0.1 µs at HBM rate.
 The ticket is one int32 per device, zeroed once: launches that share it
 must not run concurrently (the port issues them on one stream).
 
+``gn_partials_pair_batched`` is K2 over S sequences of equal sizes in one
+launch: the form JAX's ``vmap`` of the step gives the TPU kernel, whose
+batching rule adds a batch axis to its grid (``pallas_gn.py:382``,
+``grid=(1,)``). The grid's y axis picks the sequence; each sequence has its
+own scratch rows, ticket (an (S,) int32 buffer a device, zeroed once) and
+output, and its last block sums its rows in the unbatched order, so each
+sequence's (H, g, n_res) is bit-equal to its own ``gn_partials_pair``
+launch. Its bound is S times the unbatched one; it stays latency-bound.
+
 Packed layouts (the kernel reads them coalesced, one column per thread):
 
 - ``pts`` (8, N): rows 0-2 lidar xyz, row 3 valid, rows 4-7 zero — loop
@@ -46,27 +55,30 @@ import torch
 from ..core.device import common
 from . import _kernels
 
-LAUNCHES = 0  # kernel launches since the last reset (chip_smoke reads it)
+LAUNCHES = 0  # kernel launches since the last reset, whatever S (chip_smoke reads it)
 _KINDS = ("corner", "surf")
 _TICKETS: dict = {}  # device -> the kernel's last-block ticket (int32, zeroed once)
+_BATCH_TICKETS: dict = {}  # device -> (S,) tickets of the batched launch, likewise
 
 
 def pack_pts(pts_lidar: torch.Tensor, pts_valid: torch.Tensor) -> torch.Tensor:
-    N = pts_lidar.shape[0]
+    """(..., N, 3) points and (..., N) flags -> (..., 8, N) blocks."""
+    lead, N = pts_lidar.shape[:-2], pts_lidar.shape[-2]
     return torch.cat([
-        pts_lidar.T.to(torch.float32),
-        pts_valid.to(torch.float32)[None, :],
-        torch.zeros((4, N), dtype=torch.float32, device=pts_lidar.device),
-    ], dim=0).contiguous()
+        pts_lidar.transpose(-1, -2).to(torch.float32),
+        pts_valid.to(torch.float32)[..., None, :],
+        torch.zeros(lead + (4, N), dtype=torch.float32, device=pts_lidar.device),
+    ], dim=-2).contiguous()
 
 
 def pack_nbrs(nbrs: torch.Tensor, has: torch.Tensor) -> torch.Tensor:
-    N = nbrs.shape[0]
+    """(..., N, 5, 3) neighbours and (..., N, 5) flags -> (..., 24, N)."""
+    lead, N = nbrs.shape[:-3], nbrs.shape[-3]
     return torch.cat([
-        nbrs.reshape(N, 15).T.to(torch.float32),
-        has.to(torch.float32).T,
-        torch.zeros((4, N), dtype=torch.float32, device=nbrs.device),
-    ], dim=0).contiguous()
+        nbrs.reshape(lead + (N, 15)).transpose(-1, -2).to(torch.float32),
+        has.to(torch.float32).transpose(-1, -2),
+        torch.zeros(lead + (4, N), dtype=torch.float32, device=nbrs.device),
+    ], dim=-2).contiguous()
 
 
 def pack_pose(Rm: torch.Tensor, t: torch.Tensor, jacs: torch.Tensor) -> torch.Tensor:
@@ -174,3 +186,69 @@ def gn_partials(pts: torch.Tensor, nbr: torch.Tensor, par: torch.Tensor,
     blocks = (pts, nbr)
     return _launch(blocks if kind == "corner" else None,
                    blocks if kind == "surf" else None, par)
+
+
+def gn_partials_pair_batched_plain(c_pts, c_nbr, s_pts, s_nbr, par):
+    """Plain PyTorch version of ``gn_partials_pair_batched``:
+    ``gn_partials_pair_plain`` a sequence, stacked."""
+    outs = [gn_partials_pair_plain(c_pts[i], c_nbr[i], s_pts[i], s_nbr[i], par[i])
+            for i in range(par.shape[0])]
+    return tuple(torch.stack(x) for x in zip(*outs))
+
+
+def _check_batched(c_pts, c_nbr, s_pts, s_nbr, par):
+    S, Nc, Ns = par.shape[0], c_pts.shape[-1], s_pts.shape[-1]
+    if (par.shape != (S, 39) or S < 1 or c_pts.shape != (S, 8, Nc)
+            or c_nbr.shape != (S, 24, Nc) or s_pts.shape != (S, 8, Ns)
+            or s_nbr.shape != (S, 24, Ns)):
+        raise ValueError("gn_partials_batched: bad shapes "
+                         + " ".join(str(tuple(t.shape)) for t in (c_pts, c_nbr, s_pts,
+                                                                  s_nbr, par)))
+    for t in (c_pts, c_nbr, s_pts, s_nbr, par):
+        if t.dtype != torch.float32:
+            raise TypeError("gn_partials_batched: expects float32 blocks")
+
+
+def _launch_batched(c_pts, c_nbr, s_pts, s_nbr, par):
+    global LAUNCHES
+    S, Nc, Ns = par.shape[0], c_pts.shape[-1], s_pts.shape[-1]
+    dev = par.device
+    out = torch.empty((S, 43), dtype=torch.float32, device=dev)
+    n_blocks = (Nc + 127) // 128 + (Ns + 127) // 128
+    if not n_blocks:
+        out.zero_()
+    else:
+        blocks = [t.contiguous() for t in (c_pts, c_nbr, s_pts, s_nbr, par)]
+        if dev not in _BATCH_TICKETS or _BATCH_TICKETS[dev].numel() < S:
+            _BATCH_TICKETS[dev] = torch.zeros(S, dtype=torch.int32, device=dev)
+        rows = torch.empty((S, n_blocks, 28), dtype=torch.float32, device=dev)
+        c_p, c_n, s_p, s_n, par = (t.data_ptr() for t in blocks)
+        lib = _kernels.library()
+        with torch.cuda.device(dev):  # launch on the inputs' card
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            _kernels.check(lib.lvt_gn_partials_pair_batched(
+                c_p if Nc else None, c_n if Nc else None, Nc, s_p if Ns else None,
+                s_n if Ns else None, Ns, S, par, rows.data_ptr(),
+                _BATCH_TICKETS[dev].data_ptr(), out.data_ptr(), stream),
+                "lvt_gn_partials_pair_batched")
+        LAUNCHES += 1
+    # a row a sequence: H row-major (36), g (6), then n_res's int32 bits
+    return (out[:, :36].unflatten(1, (6, 6)), out[:, 36:42],
+            out[:, 42:].view(torch.int32)[:, 0])
+
+
+def gn_partials_pair_batched(c_pts: torch.Tensor, c_nbr: torch.Tensor,
+                             s_pts: torch.Tensor, s_nbr: torch.Tensor, par: torch.Tensor):
+    """``gn_partials_pair`` of S sequences at once: blocks (S, 8, Nc),
+    (S, 24, Nc), (S, 8, Ns), (S, 24, Ns) and poses (S, 39) give H (S, 6, 6),
+    g (S, 6) and n_res (S,) int32, each sequence's bit-equal to its own
+    ``gn_partials_pair``. Tensors all on the CPU take the plain version;
+    tensors all on the card launch kernel K2 once for all S; any mix
+    raises."""
+    dev = common((c_pts, c_nbr, s_pts, s_nbr, par), "gn_partials_batched")
+    _check_batched(c_pts, c_nbr, s_pts, s_nbr, par)
+    if dev.type == "cpu":
+        return gn_partials_pair_batched_plain(c_pts, c_nbr, s_pts, s_nbr, par)
+    if dev.type != "cuda":
+        raise ValueError(f"gn_partials_batched: unsupported device {dev}")
+    return _launch_batched(c_pts, c_nbr, s_pts, s_nbr, par)

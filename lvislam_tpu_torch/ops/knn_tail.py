@@ -26,6 +26,16 @@ a lane-local tree argmin and two warp-wide ``redux.sync`` minima on
 gathered rows (Q·27·4·B int16: 11.8 MB for the step's pair, 3.5 µs at HBM
 rate). At B = 16 and 32 the rows must start on a 16-byte boundary: the
 wrapper refuses a view that does not.
+
+``knn_tail_batched`` is K1 over S sequences at once, the form JAX's
+``vmap`` of the step gives the TPU kernel (its batching rule adds a batch
+axis to the grid, ``pallas_knn.py:112``). Queries are independent, so it
+is the same launch over each class's S·Q rows stacked sequence by
+sequence; a row is 27·4·B int16 (3,456 or 6,912 bytes at B = 16 or 32, a
+multiple of 16), so every row of a contiguous stack keeps the 16-byte
+alignment of its first. The persistent grid is ``min(blocks, resident)``
+blocks whatever the query count, each warp taking queries a grid stride
+apart, so S·Q past one wave needs nothing else.
 """
 
 from __future__ import annotations
@@ -37,7 +47,7 @@ from . import _kernels
 
 _BIG = 1e10
 
-LAUNCHES = 0  # kernel launches since the last reset (chip_smoke reads it)
+LAUNCHES = 0  # kernel launches since the last reset, whatever S (chip_smoke reads it)
 
 
 def knn_tail_plain(cand: torch.Tensor, want_tag: torch.Tensor,
@@ -139,3 +149,27 @@ def knn_tail(cand: torch.Tensor, want_tag: torch.Tensor,
     if dev.type != "cuda":
         raise ValueError(f"knn_tail: unsupported device {dev}")
     return _launch([(cand, want_tag, corner_off, bucket)], k)[0]
+
+
+def knn_tail_batched(sets, S: int, k: int = 5):
+    """K1 over S sequences: each of the one or two query sets of ``sets``
+    is (cand (S·Q, 27·4·B), want_tag (S·Q, 27), corner_off (S·Q, 81),
+    bucket) with sequence s's rows at [s·Q, (s+1)·Q). Returns [(dist
+    (S, Q, k), pos (S, Q, k))] a set, each sequence's rows equal to its own
+    ``knn_tail`` call. Tensors all on the CPU take the plain version;
+    tensors all on the card launch the kernel once for all sets and
+    sequences; any mix raises."""
+    if not 1 <= len(sets) <= 2:
+        raise ValueError(f"knn_tail_batched: one or two query sets, not {len(sets)}")
+    dev = common([t for qs in sets for t in qs[:3]], "knn_tail_batched")
+    for qs in sets:
+        if S < 1 or qs[0].shape[0] % S:
+            raise ValueError(f"knn_tail_batched: {qs[0].shape[0]} rows are not "
+                             f"{S} sequences of equal size")
+    if dev.type == "cpu":
+        res = [knn_tail_plain(*qs, k=k) for qs in sets]
+    elif dev.type == "cuda":
+        res = _launch(sets, k)
+    else:
+        raise ValueError(f"knn_tail_batched: unsupported device {dev}")
+    return [(d.reshape(S, -1, k), p.reshape(S, -1, k)) for d, p in res]

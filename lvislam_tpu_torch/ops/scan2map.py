@@ -14,6 +14,11 @@ device-to-host read of the convergence flag per iteration
 - ``use_pallas_gn``: coefficients + normal equations of both classes through
   one launch of kernel K2 (``ops.gn_partials``) per iteration.
 
+``scan_to_map_hashed_batched`` runs S sequences in lockstep, as JAX's
+``vmap`` of the ``while_loop`` does: K1 and K2 launched once for all S (their
+batched forms), a converged sequence frozen, one host read of the S flags
+an iteration. ``scan_to_map_hashed`` is its case S = 1.
+
 On CPU tensors the kernels' plain versions run, so every combination is
 testable here.
 """
@@ -66,14 +71,17 @@ class Coeffs(NamedTuple):
 
 
 def _mat_rows(M: torch.Tensor, pts: torch.Tensor):
-    """M p for (3, 3) M and (N, 3) p, each row's sum in index order."""
-    return [pts[:, 0] * M[i, 0] + pts[:, 1] * M[i, 1] + pts[:, 2] * M[i, 2]
-            for i in range(3)]
+    """M p for (..., 3, 3) M and (..., N, 3) p, each row's sum in index
+    order (elementwise, so a leading axis changes no bit)."""
+    return [pts[..., 0] * M[..., i, 0, None] + pts[..., 1] * M[..., i, 1, None]
+            + pts[..., 2] * M[..., i, 2, None] for i in range(3)]
 
 
 def apply_pose(R: torch.Tensor, t: torch.Tensor, pts: torch.Tensor):
-    """R p + t, summed in the order kernel K2 uses."""
-    return torch.stack([r + t[i] for i, r in enumerate(_mat_rows(R, pts))], dim=-1)
+    """R p + t, summed in the order kernel K2 uses; R (..., 3, 3), t
+    (..., 3), pts (..., N, 3)."""
+    return torch.stack([r + t[..., i, None] for i, r in enumerate(_mat_rows(R, pts))],
+                       dim=-1)
 
 
 def _nbr_sqdist(nbrs, pts_world, has):
@@ -232,6 +240,30 @@ def scan_to_map_hashed(
     map_surf: torch.Tensor,  # (Ms, 3)
     corner_hash: vh.VoxelHash,
     surf_hash: vh.VoxelHash,
+    **options,
+) -> GNState:
+    """Scan-to-map GN with the voxel-hash gated 5-NN; iterates until
+    converged or `max_iters` (see the module docstring for the flags and
+    ``scan_to_map_hashed_batched`` for the options): the one-sequence case
+    of the lockstep GN."""
+    one = lambda x: x[None]  # a view: a leading axis of 1
+    st = scan_to_map_hashed_batched(
+        *map(one, (x6_init, corner_pts, corner_valid, surf_pts, surf_valid, map_corner,
+                   map_surf)),
+        vh.VoxelHash(*map(one, corner_hash)), vh.VoxelHash(*map(one, surf_hash)), **options)
+    return GNState(*(x[0] for x in st))
+
+
+def scan_to_map_hashed_batched(
+    x6_init: torch.Tensor,  # (S, 6) initial guesses
+    corner_pts: torch.Tensor,  # (S, C, 3) lidar frame
+    corner_valid: torch.Tensor,  # (S, C)
+    surf_pts: torch.Tensor,  # (S, N, 3)
+    surf_valid: torch.Tensor,  # (S, N)
+    map_corner: torch.Tensor,  # (S, Mc, 3)
+    map_surf: torch.Tensor,  # (S, Ms, 3)
+    corner_hash: vh.VoxelHash,  # leaves with a leading S axis
+    surf_hash: vh.VoxelHash,
     max_iters: int = 20,
     eigen_thresh: float = 100.0,
     nn_refresh_every: int = 1,
@@ -239,45 +271,70 @@ def scan_to_map_hashed(
     gather_once: bool = False,
     use_pallas_gn: bool = False,
 ) -> GNState:
-    """Scan-to-map GN with the voxel-hash gated 5-NN; iterates until
-    converged or `max_iters` (see the module docstring for the flags)."""
+    """``scan_to_map_hashed`` of S sequences in lockstep, as JAX's ``vmap``
+    of its ``while_loop`` runs them: every sequence starts at iteration 0
+    and shares the refresh schedule; an iteration launches K1 once on a
+    refresh, for all S and both classes, and K2 once, for all S; a sequence
+    that has converged is frozen at the state of the iteration in which it
+    converged; one host read of the S flags an iteration ends the loop once
+    all have converged, or at `max_iters`. Returns the GNState with a
+    leading S axis, each sequence's bit-equal to ``scan_to_map_hashed`` on
+    it alone.
+
+    The pose's rotation and Jacobians, the 6×6 solve and (without K2) the
+    coefficients and normal equations run a sequence at a time, only for
+    the sequences still running: their batched forms (a batched 3×3
+    product, batched eigh / getrf on the card) may round otherwise. The
+    queries, the neighbour gathers and packs, and both kernels run once for
+    all S. At S = 1 the stacks are views: the loop launches what one
+    sequence's GN needs and no more."""
     if gather_once and not use_pallas:
         raise ValueError("gather_once requires the kernel query tail")
-    q_fn = vh.query_fused if use_pallas else vh.query
+    S = x6_init.shape[0]
     dev, dt = x6_init.device, x6_init.dtype
+    stack = (lambda xs: xs[0][None]) if S == 1 else torch.stack
 
     if use_pallas_gn:
         c_blk = gnp.pack_pts(corner_pts, corner_valid)
         s_blk = gnp.pack_pts(surf_pts, surf_valid)
     if gather_once:
-        R0 = lie.x6_rotation(x6_init)
-        g_corner = vh.query_gather(corner_hash, apply_pose(R0, x6_init[3:6], corner_pts))
-        g_surf = vh.query_gather(surf_hash, apply_pose(R0, x6_init[3:6], surf_pts))
+        R0 = stack([lie.x6_rotation(x) for x in x6_init])
+        g_corner = vh.query_gather_batched(
+            corner_hash, apply_pose(R0, x6_init[:, 3:6], corner_pts))
+        g_surf = vh.query_gather_batched(surf_hash, apply_pose(R0, x6_init[:, 3:6], surf_pts))
 
     def nn_idx(cw, sw):
-        if gather_once:  # one K1 launch for both classes
-            (ci, _), (si, _) = vh.query_score_pair(corner_hash, g_corner, cw,
-                                                    surf_hash, g_surf, sw, 5)
+        if gather_once:  # one K1 launch for both classes and all S
+            (ci, _), (si, _) = vh.query_score_pair_batched(corner_hash, g_corner, cw,
+                                                            surf_hash, g_surf, sw, 5)
+        elif use_pallas:  # one K1 launch a class
+            ci, _ = vh.query_fused_batched(corner_hash, cw, 5)
+            si, _ = vh.query_fused_batched(surf_hash, sw, 5)
         else:
-            ci, _ = q_fn(corner_hash, cw, 5)
-            si, _ = q_fn(surf_hash, sw, 5)
+            ci, _ = vh.query_batched(corner_hash, cw, 5)
+            si, _ = vh.query_batched(surf_hash, sw, 5)
         return ci, si
 
-    def gather_nbrs(map_pts, idx):
-        return map_pts[torch.clamp(idx, min=0).long()], idx >= 0
+    seq = torch.arange(S, device=dev)[:, None, None]
 
-    pts_all = torch.cat([corner_pts, surf_pts])
+    def gather_nbrs(map_pts, idx):  # sequence s's rows of its own map
+        return map_pts[seq, torch.clamp(idx, min=0).long()], idx >= 0
+
+    pts_all = torch.cat([corner_pts, surf_pts], dim=1)
     st = GNState(
-        x6=x6_init, it=torch.zeros((), dtype=torch.int32, device=dev),
-        converged=torch.zeros((), dtype=torch.bool, device=dev),
-        degenerate=torch.zeros((), dtype=torch.bool, device=dev),
-        proj=torch.eye(6, dtype=dt, device=dev),
-        num_residuals=torch.zeros((), dtype=torch.int32, device=dev),
+        x6=x6_init, it=torch.zeros(S, dtype=torch.int32, device=dev),
+        converged=torch.zeros(S, dtype=torch.bool, device=dev),
+        degenerate=torch.zeros(S, dtype=torch.bool, device=dev),
+        proj=torch.eye(6, dtype=dt, device=dev).expand(S, 6, 6),
+        num_residuals=torch.zeros(S, dtype=torch.int32, device=dev),
     )
+    running = list(range(S))  # the host's view of the unconverged sequences
+    Rs, pars = [None] * S, [None] * S  # frozen sequences keep theirs
     nbr_c = nbr_s = None
     for it in range(max_iters):
-        t = st.x6[3:6]
-        Rm = lie.x6_rotation(st.x6)
+        for s in running:
+            Rs[s] = lie.x6_rotation(st.x6[s])
+        Rm, t = stack(Rs), st.x6[:, 3:6]
         refresh = it % nn_refresh_every == 0
         if refresh or not use_pallas_gn:
             cw = apply_pose(Rm, t, corner_pts)
@@ -289,22 +346,33 @@ def scan_to_map_hashed(
             if use_pallas_gn:
                 cn_blk = gnp.pack_nbrs(*nbr_c)
                 sn_blk = gnp.pack_nbrs(*nbr_s)
+        steps = {}
         if use_pallas_gn:
-            par = gnp.pack_pose(Rm, t, _euler_jac_mats(st.x6))
-            H, g, n = gnp.gn_partials_pair(c_blk, cn_blk, s_blk, sn_blk, par)
-            new_x, conv, proj, degen, n_res = gn_solve(
-                st.x6, H, g, n, it == 0, st.proj, st.degenerate,
-                eigen_thresh=eigen_thresh)
+            for s in running:
+                pars[s] = gnp.pack_pose(Rs[s], t[s], _euler_jac_mats(st.x6[s]))
+            H, g, n = gnp.gn_partials_pair_batched(c_blk, cn_blk, s_blk, sn_blk, stack(pars))
+            for s in running:
+                steps[s] = gn_solve(st.x6[s], H[s], g[s], n[s], it == 0, st.proj[s],
+                                    st.degenerate[s], eigen_thresh=eigen_thresh)
         else:
-            cc = corner_coeffs_nbrs(cw, corner_valid, *nbr_c)
-            sc = surf_coeffs_nbrs(sw, surf_pts, surf_valid, *nbr_s)
-            coeffs = Coeffs(*(torch.cat([a, b]) for a, b in zip(cc, sc)))
-            new_x, conv, proj, degen, n_res = gn_update(
-                st.x6, pts_all, coeffs, it == 0, st.proj, st.degenerate,
-                eigen_thresh=eigen_thresh)
-        st = GNState(x6=new_x, it=st.it + 1, converged=conv, degenerate=degen,
-                     proj=proj, num_residuals=n_res.to(torch.int32))
-        if hostsync.host_bool(conv):
+            for s in running:
+                cc = corner_coeffs_nbrs(cw[s], corner_valid[s], nbr_c[0][s], nbr_c[1][s])
+                sc = surf_coeffs_nbrs(sw[s], surf_pts[s], surf_valid[s], nbr_s[0][s],
+                                      nbr_s[1][s])
+                coeffs = Coeffs(*(torch.cat([a, b]) for a, b in zip(cc, sc)))
+                steps[s] = gn_update(st.x6[s], pts_all[s], coeffs, it == 0, st.proj[s],
+                                     st.degenerate[s], eigen_thresh=eigen_thresh)
+        # JAX's vmapped while_loop: a converged sequence's carry is frozen
+        new = [steps[s] if s in steps else (st.x6[s], st.converged[s], st.proj[s],
+                                             st.degenerate[s], st.num_residuals[s])
+               for s in range(S)]
+        new_x, conv, proj, degen, n_res = (stack(x) for x in zip(*new))
+        it_new = st.it + 1 if len(running) == S else st.it + ~st.converged
+        st = GNState(x6=new_x, it=it_new, converged=conv, degenerate=degen, proj=proj,
+                     num_residuals=n_res.to(torch.int32))
+        done = hostsync.host_numpy(st.converged)  # the one host read an iteration
+        running = [s for s in range(S) if not done[s]]
+        if not running:
             break
     return st
 

@@ -18,6 +18,15 @@ Query paths:
 
 All score candidates in the same scaled domain with the same f32 op order,
 so the paths select identically.
+
+The ``*_batched`` forms take a hash whose leaves carry a leading sequence
+axis S (``rel (S, T, 4, B)``, ``cnt (S, T)``, ``cell (S,)``, ``idx
+(S, T, B)``: the batched LIO state's) and queries (S, Q, 3), and give each
+sequence what it gets alone, bit for bit. A sequence's slots index the
+flattened (S·T) table at ``s·T + slot``, so one gather and one K1 launch
+serve all S sequences (``query_score_pair_batched``: both classes too). The
+one-sequence functions above are their case S = 1 (views of a batch of
+one).
 """
 
 from __future__ import annotations
@@ -151,47 +160,40 @@ _OFFS27 = np.stack(np.meshgrid(
 ), -1).reshape(27, 3).astype(np.int32)
 
 
-def _neighborhood(h: VoxelHash, queries: torch.Tensor):
-    """(Q,27) slots, wanted tags, and the scaled geometry: query positions
-    and cell corners in fixed-point steps, the domain both paths score in."""
-    T = h.rel.shape[0]
-    qc = torch.floor(queries / h.cell).to(torch.int32)
+def _cells(queries: torch.Tensor, cell: torch.Tensor, T: int):
+    """(..., 27) slots, wanted tags, and the cell corners in fixed-point
+    steps, the domain every path scores in. `cell` broadcasts against
+    `queries`."""
+    qc = torch.floor(queries / cell).to(torch.int32)
     offs = torch.as_tensor(_OFFS27, device=queries.device)
-    cells = qc[:, None, :] + offs[None, :, :]  # (Q, 27, 3)
+    cells = qc[..., None, :] + offs  # (..., 27, 3)
     slots = _slot(cells[..., 0], cells[..., 1], cells[..., 2], T)
     want_tag = _tag(cells[..., 0], cells[..., 1], cells[..., 2])
     corner_s = cells.to(torch.float32) * _QUANT
-    q_s = queries.to(torch.float32) * (_QUANT / h.cell)
-    return slots, want_tag, corner_s, q_s
+    return slots, want_tag, corner_s
 
 
-def _recover_idx(h: VoxelHash, slots: torch.Tensor, pos: torch.Tensor, B: int):
+def _recover_idx(idx_table: torch.Tensor, slots: torch.Tensor, pos: torch.Tensor, B: int):
     """Flat candidate positions (j*B + rank) -> global indices (-1 beyond
-    the candidate range)."""
+    the candidate range); `slots` (Q, 27) are rows of `idx_table`."""
     in_range = pos < 27 * B
     pos = torch.clamp(pos, max=27 * B - 1).long()
     j = torch.div(pos, B, rounding_mode="floor")
     rank = pos % B
     sel_slot = torch.gather(slots, 1, j).long()
-    return torch.where(in_range, h.idx[sel_slot, rank],
+    return torch.where(in_range, idx_table[sel_slot, rank],
                        torch.full_like(pos, -1, dtype=torch.int32))
 
 
-def _finish(h: VoxelHash, slots, dist_s, pos, B: int):
-    out_idx = _recover_idx(h, slots, pos, B)
-    scale2 = (h.cell / _QUANT) ** 2
+def _rescale(dist_s, scale2):
     # masked lanes keep the _BIG sentinel (not rescaled)
-    return out_idx, torch.where(dist_s >= _BIG, torch.full_like(dist_s, _BIG),
-                                dist_s * scale2)
+    return torch.where(dist_s >= _BIG, torch.full_like(dist_s, _BIG), dist_s * scale2)
 
 
-def query(h: VoxelHash, queries: torch.Tensor, k: int = 5):
-    """Gated k-NN: (idx (Q,k) into the original point array, approximate
-    sqdist (Q,k)); neighbours beyond the 27-cell reach report _BIG."""
-    T, _, B = h.rel.shape
-    Q = queries.shape[0]
-    slots, want_tag, corner_s, q_s = _neighborhood(h, queries)
-    cand = h.rel[slots.long()]  # (Q, 27, 4, B) int16 — the big gather
+def _topk_plain(cand, want_tag, corner_s, q_s, B: int, k: int):
+    """The plain scoring of gathered rows cand (Q, 27, 4, B): scaled
+    distances, the tag mask, and the stable top-k (values, positions)."""
+    Q = cand.shape[0]
     occ = cand[:, :, 3, :].to(torch.int32) == want_tag[..., None]
     off = corner_s - q_s[:, None, :]  # (Q, 27, 3)
     dx = cand[:, :, 0, :].to(torch.float32) + off[:, :, 0, None]
@@ -201,7 +203,7 @@ def query(h: VoxelHash, queries: torch.Tensor, k: int = 5):
     d = torch.where(occ, d, torch.full_like(d, _BIG)).reshape(Q, 27 * B)
     # lax.top_k breaks ties to the lowest index: a stable ascending sort
     srt = torch.sort(d, dim=1, stable=True)
-    return _finish(h, slots, srt.values[:, :k], srt.indices[:, :k], B)
+    return srt.values[:, :k], srt.indices[:, :k]
 
 
 class GatheredCandidates(NamedTuple):
@@ -213,30 +215,117 @@ class GatheredCandidates(NamedTuple):
     cand: torch.Tensor  # (Q, 27*4*B) int16 planar rows
 
 
+# ---- S sequences at once (hash leaves and queries with a leading S axis) ----
+
+def _batch_cell(h: VoxelHash) -> torch.Tensor:
+    return h.cell.reshape(-1, 1, 1)
+
+
+def _scaled_queries(h: VoxelHash, queries: torch.Tensor) -> torch.Tensor:
+    """(S·Q, 3) query positions in fixed-point steps, the cell corners'."""
+    return (queries.to(torch.float32) * (_QUANT / _batch_cell(h))).reshape(-1, 3)
+
+
+def query_gather_batched(h: VoxelHash, queries: torch.Tensor) -> GatheredCandidates:
+    """``query_gather`` of S sequences, queries (S, Q, 3): the candidates
+    of sequence s at rows [s·Q, (s+1)·Q), its slots as rows s·T + slot of
+    the flattened (S·T) table."""
+    S, T, _, B = h.rel.shape
+    slots, want_tag, corner_s = _cells(queries, _batch_cell(h), T)
+    base = torch.arange(0, S * T, T, dtype=torch.int32, device=slots.device)
+    rows = (slots + base[:, None, None]).reshape(-1, 27)
+    cand = h.rel.reshape(S * T, 4, B)[rows.long()].reshape(rows.shape[0], 27 * 4 * B)
+    return GatheredCandidates(slots=rows, want_tag=want_tag.reshape(-1, 27),
+                              corner_s=corner_s.reshape(-1, 27, 3), cand=cand)
+
+
+def _query_set_batched(h: VoxelHash, g: GatheredCandidates, queries: torch.Tensor):
+    """K1's stacked (cand, want_tag, corner_off, bucket) for S sequences."""
+    q_s = _scaled_queries(h, queries)
+    corner_off = (g.corner_s - q_s[:, None, :]).permute(0, 2, 1).reshape(-1, 81)
+    return g.cand, g.want_tag, corner_off, h.rel.shape[3]
+
+
+def _finish_batched(h: VoxelHash, rows, dist_s, pos, B: int):
+    """K1's (or the plain top-k's) output of S sequences, dist_s and pos
+    (S, Q, k), as (global indices, sqdist); `rows` are the flattened
+    table's (S·Q, 27) slots."""
+    S, Q, k = pos.shape
+    idx = _recover_idx(h.idx.reshape(-1, B), rows, pos.reshape(S * Q, k), B)
+    return idx.reshape(S, Q, k), _rescale(dist_s, ((h.cell / _QUANT) ** 2)[:, None, None])
+
+
+def query_batched(h: VoxelHash, queries: torch.Tensor, k: int = 5):
+    """``query`` of S sequences: (idx (S, Q, k), sqdist (S, Q, k))."""
+    S, B = h.rel.shape[0], h.rel.shape[3]
+    g = query_gather_batched(h, queries)
+    d, p = _topk_plain(g.cand.reshape(-1, 27, 4, B), g.want_tag, g.corner_s,
+                       _scaled_queries(h, queries), B, k)
+    return _finish_batched(h, g.slots, d.reshape(S, -1, k), p.reshape(S, -1, k), B)
+
+
+def query_score_batched(h: VoxelHash, g: GatheredCandidates, queries: torch.Tensor,
+                        k: int = 5):
+    """``query_score`` of S sequences in one launch of kernel K1."""
+    qs = _query_set_batched(h, g, queries)
+    (d, p), = _knn_tail.knn_tail_batched([qs], queries.shape[0], k=k)
+    return _finish_batched(h, g.slots, d, p, qs[3])
+
+
+def query_score_pair_batched(h_a: VoxelHash, g_a: GatheredCandidates, q_a: torch.Tensor,
+                             h_b: VoxelHash, g_b: GatheredCandidates, q_b: torch.Tensor,
+                             k: int = 5):
+    """``query_score_pair`` of S sequences: both hashes' cached candidates
+    for all S in one launch of kernel K1; returns ((idx_a, sqdist_a),
+    (idx_b, sqdist_b)), each (S, Q, k)."""
+    a, b = _query_set_batched(h_a, g_a, q_a), _query_set_batched(h_b, g_b, q_b)
+    (da, pa), (db, pb) = _knn_tail.knn_tail_batched([a, b], q_a.shape[0], k=k)
+    return (_finish_batched(h_a, g_a.slots, da, pa, a[3]),
+            _finish_batched(h_b, g_b.slots, db, pb, b[3]))
+
+
+def query_fused_batched(h: VoxelHash, queries: torch.Tensor, k: int = 5):
+    """``query_fused`` of S sequences: one gather and one K1 launch."""
+    return query_score_batched(h, query_gather_batched(h, queries), queries, k=k)
+
+
+def stack(hashes) -> VoxelHash:
+    """Per-sequence hashes of one size stacked into a batched hash."""
+    return VoxelHash(*(torch.stack(x) for x in zip(*hashes)))
+
+
+# ---- one sequence: the case S = 1 of the batched functions ----
+
+def _one(h: VoxelHash) -> VoxelHash:
+    """`h` as a batch of one sequence (views)."""
+    return VoxelHash(*(x[None] for x in h))
+
+
+def _first(res):
+    return tuple(x[0] for x in res)
+
+
+def query(h: VoxelHash, queries: torch.Tensor, k: int = 5):
+    """Gated k-NN: (idx (Q,k) into the original point array, approximate
+    sqdist (Q,k)); neighbours beyond the 27-cell reach report _BIG."""
+    return _first(query_batched(_one(h), queries[None], k))
+
+
 def query_gather(h: VoxelHash, queries: torch.Tensor) -> GatheredCandidates:
     """The gather half of ``query_fused``: fetch the (Q, 27) bucket rows."""
-    T, _, B = h.rel.shape
-    Q = queries.shape[0]
-    slots, want_tag, corner_s, _ = _neighborhood(h, queries)
-    cand = h.rel[slots.long()].reshape(Q, 27 * 4 * B)
-    return GatheredCandidates(slots=slots, want_tag=want_tag,
-                              corner_s=corner_s, cand=cand)
+    return query_gather_batched(_one(h), queries[None])
 
 
 def _query_set(h: VoxelHash, g: GatheredCandidates, queries: torch.Tensor):
     """K1's (cand, want_tag, corner_off, bucket) for cached candidates."""
-    q_s = queries.to(torch.float32) * (_QUANT / h.cell)
-    corner_off = (g.corner_s - q_s[:, None, :]).permute(0, 2, 1).reshape(-1, 81)
-    return g.cand, g.want_tag, corner_off, h.rel.shape[2]
+    return _query_set_batched(_one(h), g, queries[None])
 
 
 def query_score(h: VoxelHash, g: GatheredCandidates, queries: torch.Tensor,
                 k: int = 5):
     """Score cached candidates against updated query positions (kernel K1
     on the card). Exact for queries still inside their gather-time cell."""
-    qs = _query_set(h, g, queries)
-    dist_s, pos = _knn_tail.knn_tail(*qs, k=k)
-    return _finish(h, g.slots, dist_s, pos, qs[3])
+    return _first(query_score_batched(_one(h), g, queries[None], k))
 
 
 def query_score_pair(h_a: VoxelHash, g_a: GatheredCandidates, q_a: torch.Tensor,
@@ -244,11 +333,10 @@ def query_score_pair(h_a: VoxelHash, g_a: GatheredCandidates, q_a: torch.Tensor,
                      k: int = 5):
     """``query_score`` of two hashes' cached candidates in one launch of
     kernel K1; returns ((idx_a, sqdist_a), (idx_b, sqdist_b))."""
-    a, b = _query_set(h_a, g_a, q_a), _query_set(h_b, g_b, q_b)
-    (da, pa), (db, pb) = _knn_tail.knn_tail_pair(a, b, k=k)
-    return _finish(h_a, g_a.slots, da, pa, a[3]), _finish(h_b, g_b.slots, db, pb, b[3])
+    a, b = query_score_pair_batched(_one(h_a), g_a, q_a[None], _one(h_b), g_b, q_b[None], k)
+    return _first(a), _first(b)
 
 
 def query_fused(h: VoxelHash, queries: torch.Tensor, k: int = 5):
     """``query`` with the post-gather tail in kernel K1."""
-    return query_score(h, query_gather(h, queries), queries, k=k)
+    return _first(query_fused_batched(_one(h), queries[None], k))

@@ -327,9 +327,12 @@ def test_pipelined_system_short_feed_from_carried_state(parity_data, jax_pipe_ru
 def test_pipelined_placement_and_stale_frames(parity_data):
     """A pipelined system built on the CPU places each stage's state on its
     device, queues a frame's stage-T output until the next frame (the
-    estimator one frame behind), drains the queue in `run`, and drops a
-    repeated or older frame stamp. `device` beside `pipeline_devices`
-    raises."""
+    estimator one frame behind) and drains the queue in `run`. Fed frame 0,
+    frame 0 again, an older stamp, then frame 1, it queues and estimates
+    what the JAX pipelined system does with the same feed: the same
+    `frame_times` and `vio_frames` (the reference's pipelined handler tests
+    `last_image_time` but never sets it, so it drops no frame). `device`
+    beside `pipeline_devices` raises."""
     from lvislam_tpu_torch.models.pipeline import LviSystem
 
     cfg = dataclasses.replace(convert.lvi_config_from_jax(jax_parity_system().cfg),
@@ -341,15 +344,25 @@ def test_pipelined_placement_and_stale_frames(parity_data):
     assert sys_.lio.state.x6.device == sys_.fusion.pos.device == sys_._dev_lio
     assert sys_.tracker.pts.device == sys_.depth_clouds.device == sys_._dev_trk
     assert sys_.vio.ws.Ps.device == sys_.loop_db.bags.device == sys_._dev_vio
+    jsys = jax_pipelined_system()
     imgs = parity_data["imgs"]
-    sys_.feed_image(*imgs[0])
-    sys_.bus.run()
-    assert sys_.vio_frames == 0 and sys_._pending_track["stamp"] == imgs[0][0]
-    sys_.feed_image(*imgs[0])  # a repeated stamp: dropped
-    sys_.feed_image(imgs[0][0] - 0.05, imgs[0][1])  # an older one: dropped
-    sys_.bus.run()
-    assert sys_.vio_frames == 0 and sys_._pending_track["stamp"] == imgs[0][0]
-    sys_.feed_image(*imgs[1])
-    sys_.run()  # stage E for frame 0, stage T for frame 1, then the drain
-    assert sys_.vio_frames == 2 and sys_._pending_track is None
-    assert sys_.frame_times == [imgs[0][0], imgs[1][0]]
+    both = (jsys, sys_)
+    for s in both:
+        s.feed_image(*imgs[0])
+        s.bus.run()
+    assert sys_.vio_frames == jsys.vio_frames == 0
+    assert sys_._pending_track["stamp"] == jsys._pending_track["stamp"] == imgs[0][0]
+    for s in both:
+        s.feed_image(*imgs[0])  # a repeated stamp
+        s.feed_image(imgs[0][0] - 0.05, imgs[0][1])  # an older one
+        s.bus.run()
+    assert sys_.vio_frames == jsys.vio_frames
+    assert sys_.frame_times == jsys.frame_times
+    assert sys_._pending_track["stamp"] == jsys._pending_track["stamp"]
+    for s in both:
+        s.feed_image(*imgs[1])
+        s.run()  # stage E for the queued frame, stage T for frame 1, then the drain
+    assert sys_.vio_frames == jsys.vio_frames and sys_._pending_track is None
+    assert jsys._pending_track is None
+    assert sys_.frame_times == jsys.frame_times
+    assert sys_.frame_times[-1] == imgs[1][0]
