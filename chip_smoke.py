@@ -294,6 +294,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 from lvislam_tpu_torch.scripts.bench_inputs import (  # noqa: E402
     N_SCANS, RATE, REPLAY_BATCH, UPLOAD_BATCH, Prefetch, full_width_config, lvi_full_config,
     lvi_loop_config, lvi_parity_config, lvi_stream, scan_jobs, stream_pool)
+from lvislam_tpu_torch.scripts.profile import RANGES  # noqa: E402
 
 ATE_LIMIT_PCT = 5.0  # BASELINE criterion: not more than 5% worse than the anchor
 N_WARM = 11
@@ -686,10 +687,10 @@ def profile_steady(cfg, scans, dev, n_prof: int):
     log("profile", gn_iters=n_it, kernels_in_gn_loop=gn_launches,
         kernels_per_gn_iter=round(gn_launches / max(n_it, 1), 1))
     # device-side kernel events only (an op's row repeats its kernels' time,
-    # and a `lio.*` range's device row spans the kernels inside it)
+    # and a range's device row spans the kernels inside it)
     rows = [(e.key, e.self_device_time_total, e.count) for e in prof.key_averages()
             if e.device_type == torch.autograd.DeviceType.CUDA
-            and e.self_device_time_total > 0 and not e.key.startswith("lio.")]
+            and e.self_device_time_total > 0 and not e.key.startswith(RANGES)]
     busy = sum(r[1] for r in rows)
     launches = sum(r[2] for r in rows if r[1] > 0)
     log("profile", scans=n_prof, wall_ms_per_scan=round(wall_us / n_prof / 1e3, 3),
@@ -1387,7 +1388,8 @@ def device_kernels(fn, n: int):
             fn(i)
         torch.cuda.synchronize()
     rows = [(e.key, e.self_device_time_total, e.count) for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
+            if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0
+            and not e.key.startswith(RANGES)]
     top = [(key[:70], round(us / n / 1e3, 4), round(cnt / n, 1))
            for key, us, cnt in sorted(rows, key=lambda r: -r[1])[:5]]
     return sum(r[2] for r in rows) / n, sum(r[1] for r in rows) / n / 1e3, top

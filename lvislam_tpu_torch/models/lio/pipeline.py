@@ -5,9 +5,11 @@ for one scan per call, on tensors of one device.
 The input contract is unchanged: ``pack_scan`` quantizes one scan, its IMU
 window and the misc flags into the same flat int16 buffer as the JAX
 package (3 mm position and 4 µs time quanta, bit-cast floats), and
-``lio_full_step`` unpacks it on the device. Profiler ranges (``lio.*``)
-name the step's stages in a ``torch.profiler`` trace and cost nothing
-measurable when no profiler runs.
+``lio_full_step`` unpacks it on the device. Profiler ranges (``lio.*``:
+``lio.pack``, ``lio.frontend``, ``lio.scan_to_map`` with a ``lio.gn_iter``
+an iteration, ``lio.keyframe``, ``lio.loop_closure``) name the step's
+stages in a ``torch.profiler`` trace and cost nothing measurable when no
+profiler runs.
 
 The batched-upload transport of the JAX package is here too: with
 ``LioConfig.upload_batch`` = K > 1, ``process_scan`` stages the packed
@@ -266,14 +268,16 @@ class LioPipeline:
         self.scan_counter += 1
         do_loop = (cfg.loop_closure_enabled
                    and self.scan_counter % cfg.loop_every_n_scans == 0)
-        buf = pack_scan(cfg, scan, imu_rel_time, imu_gyro, imu_rpy_init,
-                        odom=odom, gps=gps, do_loop=do_loop)
+        with record_function("lio.pack"):
+            buf = pack_scan(cfg, scan, imu_rel_time, imu_gyro, imu_rpy_init,
+                            odom=odom, gps=gps, do_loop=do_loop)
+            if cfg.upload_batch == 1:
+                packed = torch.from_numpy(buf).to(self.device, non_blocking=False)
         if cfg.upload_batch > 1:
             self._staged.append((buf, scan["stamp"]))
             if len(self._staged) >= cfg.upload_batch:
                 self._ship_full_batch()
             return None
-        packed = torch.from_numpy(buf).to(self.device, non_blocking=False)
         self.uploads += 1
         self.state, out = lio_full_step(self.state, packed, **self._kw)
         self.trajectory.append((scan["stamp"], out.x6))

@@ -29,6 +29,7 @@ import dataclasses
 from typing import NamedTuple
 
 import torch
+from torch.profiler import record_function
 
 from ...core import lie
 from ...core.device import resolve as resolve_device
@@ -327,38 +328,43 @@ def process_image(
     if params.estimate_extrinsic_rotation:
         ric_ok = host_bool(state.ric_ok)
         if not ric_ok:
-            state = _calibrate_extrinsic(state, fi, fc, caps, params, sampler)
+            with record_function("vio.init"):
+                state = _calibrate_extrinsic(state, fi, fc, caps, params, sampler)
             ric_ok = host_bool(state.ric_ok)
 
     # while the extrinsic rotation is uncalibrated, initialization is blocked
     if not initialized and ric_ok:
-        state = _try_initialize(state, lidar_odom, window_full, caps, params, sampler)
+        with record_function("vio.init"):
+            state = _try_initialize(state, lidar_odom, window_full, caps, params, sampler)
         initialized = host_bool(state.initialized)
 
     ba_iterations = 0
     marg_old = True
     if initialized and window_full:
         marg_old = host_bool(marg_old_t)
-        table = fm.triangulate_all(state.table, state.ws.Ps, state.ws.Qs, state.ws.tic,
-                                   state.ws.qic, caps)
+        with record_function("vio.triangulate"):
+            table = fm.triangulate_all(state.table, state.ws.Ps, state.ws.Qs, state.ws.tic,
+                                       state.ws.qic, caps)
         G = torch.tensor([0.0, 0.0, params.g_norm], dtype=state.ws.Ps.dtype,
                          device=state.ws.Ps.device)
-        res = ba.solve(
-            state.ws, table.inv_depth, table.obs, table.vel, table.obs_valid,
-            table.start_frame, table.ids >= 0, table.lidar_flag, state.pints,
-            state.frame_valid, state.prior, G, state.td0, cfg, table_rt=table.rt,
-        )
-        ba_iterations = res.iterations
-        table = table._replace(inv_depth=res.inv_depth)
-        state = state._replace(ws=res.ws, table=table)
-        if marg_old:
-            prior = ba.marginalize_old(
+        with record_function("vio.ba"):
+            res = ba.solve(
                 state.ws, table.inv_depth, table.obs, table.vel, table.obs_valid,
                 table.start_frame, table.ids >= 0, table.lidar_flag, state.pints,
                 state.frame_valid, state.prior, G, state.td0, cfg, table_rt=table.rt,
             )
-        else:
-            prior = ba.marginalize_second_new(state.prior, cfg)
+        ba_iterations = res.iterations
+        table = table._replace(inv_depth=res.inv_depth)
+        state = state._replace(ws=res.ws, table=table)
+        with record_function("vio.marg"):
+            if marg_old:
+                prior = ba.marginalize_old(
+                    state.ws, table.inv_depth, table.obs, table.vel, table.obs_valid,
+                    table.start_frame, table.ids >= 0, table.lidar_flag, state.pints,
+                    state.frame_valid, state.prior, G, state.td0, cfg, table_rt=table.rt,
+                )
+            else:
+                prior = ba.marginalize_second_new(state.prior, cfg)
         state = state._replace(prior=prior)
 
     # failure detection: bias / velocity sanity plus the pose-jump checks
@@ -383,7 +389,8 @@ def process_image(
         state = state._replace(last_P=cur_P, last_P_ok=state.initialized)
         if window_full:
             # an uninitialized full window always slides its oldest frame out
-            state = _slide_window(state, marg_old, caps, cfg)
+            with record_function("vio.slide"):
+                state = _slide_window(state, marg_old, caps, cfg)
         else:
             fc += 1
             state = state._replace(frame_count=state.frame_count + 1)

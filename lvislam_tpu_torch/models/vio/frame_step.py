@@ -32,6 +32,7 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from ...core.config import CameraIntrinsics
 from ...ops import ba
@@ -118,18 +119,20 @@ def _track(tracker, img, t, fresh, body_avail, body_trans, body_quat,
            depth_clouds, depth_valid, tparams, cam, use_depth, sampler):
     """The tracker step (CLAHE + LK + F-RANSAC + refill) and the lidar
     depth channel (exchange 2): (tracker', tout, depth)."""
-    tracker2, tout = ft.tracker_step(tracker, img, t, tparams, cam, sampler=sampler)
+    with record_function("vio.tracker"):
+        tracker2, tout = ft.tracker_step(tracker, img, t, tparams, cam, sampler=sampler)
     depth = torch.full((tparams.max_cnt,), -1.0, dtype=torch.float32, device=img.device)
     if use_depth:
-        S = depth_clouds.shape[0]
-        depth_on = body_avail & torch.any(fresh)
-        d = ft.register_depth(
-            tout.norm, tout.valid,
-            depth_clouds.reshape(S * depth_clouds.shape[1], 3),
-            (depth_valid & fresh[:, None]).reshape(-1),
-            body_trans, body_quat,
-        )
-        depth = torch.where(depth_on, d, depth)
+        with record_function("vio.depth"):
+            S = depth_clouds.shape[0]
+            depth_on = body_avail & torch.any(fresh)
+            d = ft.register_depth(
+                tout.norm, tout.valid,
+                depth_clouds.reshape(S * depth_clouds.shape[1], 3),
+                (depth_valid & fresh[:, None]).reshape(-1),
+                body_trans, body_quat,
+            )
+            depth = torch.where(depth_on, d, depth)
     return tracker2, tout, depth
 
 
@@ -140,13 +143,15 @@ def _estimate(vio, imu, ids, norm, vel, depth, valid, rt, n_tracked, seed,
     nothing) and the estimator step: (vio', summary (21,), frame_count')."""
     M = caps.imu_buf
     if imu_n > 0:
-        dts = torch.where(torch.arange(M, device=imu.device) < imu_n, imu[:, 0], 0.0)
-        vio = est.process_imu(vio, dts, imu[:, 1:4], imu[:, 4:7], caps, vparams,
-                              frame_count=frame_count)
-    vio3, vout = est.process_image(
-        vio, ids, norm, vel, depth, valid, seed, caps, vparams, cfg, rt=rt,
-        frame_count=frame_count, sampler=sampler,
-    )
+        with record_function("vio.preint"):
+            dts = torch.where(torch.arange(M, device=imu.device) < imu_n, imu[:, 0], 0.0)
+            vio = est.process_imu(vio, dts, imu[:, 1:4], imu[:, 4:7], caps, vparams,
+                                  frame_count=frame_count)
+    with record_function("vio.estimator"):
+        vio3, vout = est.process_image(
+            vio, ids, norm, vel, depth, valid, seed, caps, vparams, cfg, rt=rt,
+            frame_count=frame_count, sampler=sampler,
+        )
     fc = vout["frame_count"]
     j = min(fc, caps.window)
     f32 = lambda x: x.to(torch.float32)[None]

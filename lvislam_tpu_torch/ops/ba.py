@@ -30,6 +30,7 @@ from typing import NamedTuple
 
 import torch
 from torch.func import jacfwd, jvp
+from torch.profiler import record_function
 
 from ..core import lie
 from ..core.device import resolve as resolve_device
@@ -406,14 +407,15 @@ def solve(
     lam = torch.as_tensor(1e-4, dtype=dt, device=device)
     n_it = 0
     for i in range(cfg.iterations):
-        d = step(ws, inv_depth, lam, w_proj)
-        ws2 = _retract_window(ws, d[:S], cfg)
-        inv2 = inv_depth + torch.where(frozen, torch.zeros_like(d[S:]), d[S:])
-        ws, inv_depth, lam, cost, w_proj, done = _lm_accept(
-            ws, ws2, inv_depth, inv2, lam, cost, w_proj, eval_cost, cfg)
-        n_it = i + 1
-        if cfg.ftol > 0.0 and n_it < cfg.iterations and host_bool(done):
-            break
+        with record_function("vio.ba_iter"):
+            d = step(ws, inv_depth, lam, w_proj)
+            ws2 = _retract_window(ws, d[:S], cfg)
+            inv2 = inv_depth + torch.where(frozen, torch.zeros_like(d[S:]), d[S:])
+            ws, inv_depth, lam, cost, w_proj, done = _lm_accept(
+                ws, ws2, inv_depth, inv2, lam, cost, w_proj, eval_cost, cfg)
+            n_it = i + 1
+            if cfg.ftol > 0.0 and n_it < cfg.iterations and host_bool(done):
+                break
     return BAResult(ws=ws, inv_depth=inv_depth, final_cost=cost, iterations=n_it)
 
 

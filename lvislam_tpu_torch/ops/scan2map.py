@@ -29,6 +29,7 @@ import math
 from typing import NamedTuple
 
 import torch
+from torch.profiler import record_function
 
 from ..core import hostsync, lie
 from . import gn_partials as gnp
@@ -332,48 +333,49 @@ def scan_to_map_hashed_batched(
     Rs, pars = [None] * S, [None] * S  # frozen sequences keep theirs
     nbr_c = nbr_s = None
     for it in range(max_iters):
-        for s in running:
-            Rs[s] = lie.x6_rotation(st.x6[s])
-        Rm, t = stack(Rs), st.x6[:, 3:6]
-        refresh = it % nn_refresh_every == 0
-        if refresh or not use_pallas_gn:
-            cw = apply_pose(Rm, t, corner_pts)
-            sw = apply_pose(Rm, t, surf_pts)
-        if refresh:
-            ci, si = nn_idx(cw, sw)
-            nbr_c = gather_nbrs(map_corner, ci)
-            nbr_s = gather_nbrs(map_surf, si)
+        with record_function("lio.gn_iter"):
+            for s in running:
+                Rs[s] = lie.x6_rotation(st.x6[s])
+            Rm, t = stack(Rs), st.x6[:, 3:6]
+            refresh = it % nn_refresh_every == 0
+            if refresh or not use_pallas_gn:
+                cw = apply_pose(Rm, t, corner_pts)
+                sw = apply_pose(Rm, t, surf_pts)
+            if refresh:
+                ci, si = nn_idx(cw, sw)
+                nbr_c = gather_nbrs(map_corner, ci)
+                nbr_s = gather_nbrs(map_surf, si)
+                if use_pallas_gn:
+                    cn_blk = gnp.pack_nbrs(*nbr_c)
+                    sn_blk = gnp.pack_nbrs(*nbr_s)
+            steps = {}
             if use_pallas_gn:
-                cn_blk = gnp.pack_nbrs(*nbr_c)
-                sn_blk = gnp.pack_nbrs(*nbr_s)
-        steps = {}
-        if use_pallas_gn:
-            for s in running:
-                pars[s] = gnp.pack_pose(Rs[s], t[s], _euler_jac_mats(st.x6[s]))
-            H, g, n = gnp.gn_partials_pair_batched(c_blk, cn_blk, s_blk, sn_blk, stack(pars))
-            for s in running:
-                steps[s] = gn_solve(st.x6[s], H[s], g[s], n[s], it == 0, st.proj[s],
-                                    st.degenerate[s], eigen_thresh=eigen_thresh)
-        else:
-            for s in running:
-                cc = corner_coeffs_nbrs(cw[s], corner_valid[s], nbr_c[0][s], nbr_c[1][s])
-                sc = surf_coeffs_nbrs(sw[s], surf_pts[s], surf_valid[s], nbr_s[0][s],
-                                      nbr_s[1][s])
-                coeffs = Coeffs(*(torch.cat([a, b]) for a, b in zip(cc, sc)))
-                steps[s] = gn_update(st.x6[s], pts_all[s], coeffs, it == 0, st.proj[s],
-                                     st.degenerate[s], eigen_thresh=eigen_thresh)
-        # JAX's vmapped while_loop: a converged sequence's carry is frozen
-        new = [steps[s] if s in steps else (st.x6[s], st.converged[s], st.proj[s],
-                                             st.degenerate[s], st.num_residuals[s])
-               for s in range(S)]
-        new_x, conv, proj, degen, n_res = (stack(x) for x in zip(*new))
-        it_new = st.it + 1 if len(running) == S else st.it + ~st.converged
-        st = GNState(x6=new_x, it=it_new, converged=conv, degenerate=degen, proj=proj,
-                     num_residuals=n_res.to(torch.int32))
-        done = hostsync.host_numpy(st.converged)  # the one host read an iteration
-        running = [s for s in range(S) if not done[s]]
-        if not running:
-            break
+                for s in running:
+                    pars[s] = gnp.pack_pose(Rs[s], t[s], _euler_jac_mats(st.x6[s]))
+                H, g, n = gnp.gn_partials_pair_batched(c_blk, cn_blk, s_blk, sn_blk, stack(pars))
+                for s in running:
+                    steps[s] = gn_solve(st.x6[s], H[s], g[s], n[s], it == 0, st.proj[s],
+                                        st.degenerate[s], eigen_thresh=eigen_thresh)
+            else:
+                for s in running:
+                    cc = corner_coeffs_nbrs(cw[s], corner_valid[s], nbr_c[0][s], nbr_c[1][s])
+                    sc = surf_coeffs_nbrs(sw[s], surf_pts[s], surf_valid[s], nbr_s[0][s],
+                                          nbr_s[1][s])
+                    coeffs = Coeffs(*(torch.cat([a, b]) for a, b in zip(cc, sc)))
+                    steps[s] = gn_update(st.x6[s], pts_all[s], coeffs, it == 0, st.proj[s],
+                                         st.degenerate[s], eigen_thresh=eigen_thresh)
+            # JAX's vmapped while_loop: a converged sequence's carry is frozen
+            new = [steps[s] if s in steps else (st.x6[s], st.converged[s], st.proj[s],
+                                                 st.degenerate[s], st.num_residuals[s])
+                   for s in range(S)]
+            new_x, conv, proj, degen, n_res = (stack(x) for x in zip(*new))
+            it_new = st.it + 1 if len(running) == S else st.it + ~st.converged
+            st = GNState(x6=new_x, it=it_new, converged=conv, degenerate=degen, proj=proj,
+                         num_residuals=n_res.to(torch.int32))
+            done = hostsync.host_numpy(st.converged)  # the one host read an iteration
+            running = [s for s in range(S) if not done[s]]
+            if not running:
+                break
     return st
 
 
@@ -404,19 +406,20 @@ def scan_to_map(
     )
     pts = torch.cat([corner_pts, surf_pts])
     for it in range(max_iters):
-        Rm = lie.x6_rotation(st.x6)
-        t = st.x6[3:6]
-        cw = corner_pts @ Rm.T + t
-        sw = surf_pts @ Rm.T + t
-        ci, cd = knn(cw, corner_valid, map_corner, map_corner_valid, 5)
-        si, sd = knn(sw, surf_valid, map_surf, map_surf_valid, 5)
-        cc = corner_coeffs(cw, corner_valid, map_corner, ci, cd)
-        sc = surf_coeffs(sw, surf_pts, surf_valid, map_surf, si, sd)
-        coeffs = Coeffs(*(torch.cat([a, b]) for a, b in zip(cc, sc)))
-        new_x, conv, proj, degen, n_res = gn_update(
-            st.x6, pts, coeffs, it == 0, st.proj, st.degenerate, eigen_thresh=eigen_thresh)
-        st = GNState(x6=new_x, it=st.it + 1, converged=conv, degenerate=degen,
-                     proj=proj, num_residuals=n_res.to(torch.int32))
-        if hostsync.host_bool(conv):
-            break
+        with record_function("lio.gn_iter"):
+            Rm = lie.x6_rotation(st.x6)
+            t = st.x6[3:6]
+            cw = corner_pts @ Rm.T + t
+            sw = surf_pts @ Rm.T + t
+            ci, cd = knn(cw, corner_valid, map_corner, map_corner_valid, 5)
+            si, sd = knn(sw, surf_valid, map_surf, map_surf_valid, 5)
+            cc = corner_coeffs(cw, corner_valid, map_corner, ci, cd)
+            sc = surf_coeffs(sw, surf_pts, surf_valid, map_surf, si, sd)
+            coeffs = Coeffs(*(torch.cat([a, b]) for a, b in zip(cc, sc)))
+            new_x, conv, proj, degen, n_res = gn_update(
+                st.x6, pts, coeffs, it == 0, st.proj, st.degenerate, eigen_thresh=eigen_thresh)
+            st = GNState(x6=new_x, it=st.it + 1, converged=conv, degenerate=degen,
+                         proj=proj, num_residuals=n_res.to(torch.int32))
+            if hostsync.host_bool(conv):
+                break
     return st

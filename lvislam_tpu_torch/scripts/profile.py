@@ -60,7 +60,9 @@ from ..utils.profiling import device_timer
 from . import bench_inputs as bi
 
 
-RANGES = ("lio.",)  # the port's `record_function` ranges: their device rows span kernels
+# the port's `record_function` ranges (the fused system's spans): their
+# device rows span kernels
+RANGES = ("lio.", "lvi.", "vio.", "loop.", "host.")
 
 
 def kernel_rows(prof) -> list:

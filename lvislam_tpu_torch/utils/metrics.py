@@ -9,6 +9,7 @@ import time
 from typing import IO
 
 import numpy as np
+from torch.profiler import record_function
 
 
 def umeyama_alignment(src: np.ndarray, dst: np.ndarray, with_scale: bool = False):
@@ -76,14 +77,6 @@ class MetricsLogger:
             self._fh.write(json.dumps(rec) + "\n")
             self._fh.flush()
 
-    def stage_stats(self, stage: str, key: str = "dt"):
-        vals = [r[key] for r in self.records if r["stage"] == stage and key in r]
-        if not vals:
-            return {}
-        a = np.array(vals)
-        return dict(n=len(a), mean=float(a.mean()), p50=float(np.percentile(a, 50)),
-                    p95=float(np.percentile(a, 95)), max=float(a.max()))
-
     def close(self):
         if self._fh:
             self._fh.close()
@@ -91,17 +84,22 @@ class MetricsLogger:
 
 class StageTimer:
     """Context-manager timing helper feeding MetricsLogger (host clock; the
-    time covers the device work only where the stage reads a result back)."""
+    time covers the device work only where the stage reads a result back).
+    It also opens the profiler range ``lvi.<stage>``, the root of the spans
+    a traced run records inside the stage."""
 
     def __init__(self, logger: MetricsLogger, stage: str, **fields):
         self.logger = logger
         self.stage = stage
         self.fields = fields
+        self._range = record_function(f"lvi.{stage}")
 
     def __enter__(self):
+        self._range.__enter__()
         self.t0 = time.perf_counter()
         return self
 
     def __exit__(self, *exc):
         self.logger.log(self.stage, dt=time.perf_counter() - self.t0, **self.fields)
+        self._range.__exit__(*exc)
         return False
