@@ -33,8 +33,15 @@ def norm3(v: torch.Tensor, keepdim: bool = False) -> torch.Tensor:
     return n[..., None] if keepdim else n
 
 
+def _unit(n: int, i: int, dtype, device) -> torch.Tensor:
+    """The i-th unit vector of length n, made on the device: a CUDA graph
+    capture refuses the host copy that ``torch.tensor`` makes."""
+    eye = torch.eye(n, dtype=dtype, device=device)
+    return eye[i].clone()
+
+
 def quat_identity(dtype=torch.float32, device=None) -> torch.Tensor:
-    return torch.tensor([1.0, 0.0, 0.0, 0.0], dtype=dtype, device=device)
+    return _unit(4, 0, dtype, device)
 
 
 def quat_multiply(q: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
@@ -54,8 +61,9 @@ def quat_multiply(q: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
 
 
 def quat_conjugate(q: torch.Tensor) -> torch.Tensor:
-    return q * torch.tensor([1.0, -1.0, -1.0, -1.0], dtype=q.dtype,
-                            device=q.device)
+    # the bits of q * [1, -1, -1, -1], signed zeros included, with no
+    # host-built constant (a CUDA graph capture refuses its copy)
+    return torch.cat([q[..., :1], -q[..., 1:]], dim=-1)
 
 
 def quat_inverse(q: torch.Tensor) -> torch.Tensor:
@@ -288,7 +296,7 @@ def g2R(g: torch.Tensor) -> torch.Tensor:
     """World-from-body rotation aligning measured gravity direction `g` with
     +z and zeroing yaw."""
     ng1 = g / torch.clamp(norm3(g, keepdim=True), min=_EPS)
-    ng2 = torch.tensor([0.0, 0.0, 1.0], dtype=g.dtype, device=g.device)
+    ng2 = _unit(3, 2, g.dtype, g.device)
     v = cross(ng1, ng2.expand(ng1.shape))
     c = torch.sum(ng1 * ng2, dim=-1, keepdim=True)
     axis_norm = norm3(v, keepdim=True)
@@ -333,8 +341,7 @@ def pose6_to_matrix(x6: torch.Tensor) -> torch.Tensor:
     """[roll, pitch, yaw, tx, ty, tz] (radians) → 4×4 affine."""
     R = x6_rotation(x6)
     top = torch.cat([R, x6[..., 3:6, None]], dim=-1)
-    bottom = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=x6.dtype,
-                          device=x6.device).expand(x6.shape[:-1] + (4,))
+    bottom = _unit(4, 3, x6.dtype, x6.device).expand(x6.shape[:-1] + (4,))
     return torch.cat([top, bottom[..., None, :]], dim=-2)
 
 

@@ -21,6 +21,14 @@ inside a residual is functional and mask-based. The LM loop is a Python loop
 with one host read per iteration (the convergence flag), through
 ``core.hostsync``; the accept/reject stays ``torch.where``. Everything is
 fixed-shape: invalid frames and features carry zero weights.
+
+On a card, the LM prologue, one LM iteration and ``marginalize_old`` are
+each captured once per signature of their inputs (shapes, dtypes, device,
+the ``BAConfig``) as a CUDA graph and replayed: thousands of small
+launches from Python become one. The captured functions are the eager ones
+(``_lm_prologue``, ``_lm_iteration``, ``_marginalize_old``), which run as
+they are on the CPU and under ``torch.func`` or autograd. Spans:
+``vio.ba_graph`` around each replay, ``vio.ba_capture`` around each capture.
 """
 
 from __future__ import annotations
@@ -307,6 +315,269 @@ class BAResult(NamedTuple):
     iterations: int  # LM steps taken (host value)
 
 
+class _Window(NamedTuple):
+    """What the LM loop and the marginalization take besides the states."""
+
+    obs: torch.Tensor  # (F, W+1, 2)
+    vel: torch.Tensor  # (F, W+1, 2)
+    obs_valid: torch.Tensor  # (F, W+1)
+    start: torch.Tensor  # (F,)
+    feat_valid: torch.Tensor  # (F,)
+    lidar_flag: torch.Tensor  # (F,)
+    pints: pre.PreintState
+    frame_valid: torch.Tensor  # (W+1,)
+    prior: Prior
+    gravity: torch.Tensor  # (3,)
+    td0: torch.Tensor  # ()
+    rt: torch.Tensor | None  # (F, W+1)
+
+
+def _eval_cost(ws, inv_depth, win: _Window, whiten, cfg: BAConfig):
+    """(cost, robust weights) at a state: one projection sweep serves both."""
+    r0_proj, pmask = projection_residuals(
+        ws, inv_depth, win.obs, win.vel, win.obs_valid, win.start, win.feat_valid,
+        win.td0, cfg, rt=win.rt,
+    )
+    w = robust_weights(r0_proj, pmask, cfg.cauchy_c)
+    prior = win.prior
+    r_prior = prior.r + prior.J @ state_minus(ws, prior.ws_bar, cfg)
+    r_imu = imu_residuals(ws, win.pints, win.frame_valid, win.gravity, cfg,
+                          whiten=whiten).reshape(-1)
+    r = torch.cat([r_prior, r_imu, (r0_proj * w[..., None]).reshape(-1)])
+    return torch.sum(r * r), w
+
+
+def _lm_step(ws, inv_depth, lam, w_proj, win: _Window, whiten, cfg: BAConfig):
+    """The LM step d (d_total,) at the incoming state. The robust weights at
+    that state are what the previous accept/reject evaluation already
+    computed."""
+    dt, device = ws.Ps.dtype, ws.Ps.device
+    D, S, Fn = cfg.d_total, cfg.d_state, cfg.max_features
+    W1 = cfg.window + 1
+    zeros = lambda n: torch.zeros(n, dtype=dt, device=device)
+
+    def res(d):
+        return full_residual(
+            d, ws, inv_depth, win.obs, win.vel, win.obs_valid, win.start, win.feat_valid,
+            win.lidar_flag, win.pints, win.frame_valid, win.prior, win.gravity, win.td0,
+            cfg, proj_weights=w_proj, table_rt=win.rt, imu_whiten=whiten,
+        )
+
+    if cfg.solver == "schur":
+        n_pre = S + cfg.window * 15  # prior + IMU rows precede proj rows
+        # state-block Jacobian: S tangent passes, the residual beside it
+        J_s, r = jacfwd(_with_aux(lambda d_s: res(torch.cat([d_s, zeros(Fn)]))),
+                        has_aux=True)(zeros(S))
+        # depth-block Jacobian: depth columns are row-disjoint (each depth
+        # touches only its feature's projection rows), so J_d @ 1 recovers
+        # every nonzero entry: one jvp, no F-wide jacfwd
+        _, Jd_rows = jvp(lambda d_d: res(torch.cat([zeros(S), d_d])),
+                         (zeros(Fn),), (torch.ones(Fn, dtype=dt, device=device),))
+        Jd = Jd_rows[n_pre:].reshape(Fn, W1 * 2)
+        Js_proj = J_s[n_pre:].reshape(Fn, W1 * 2, S)
+        r_proj_rows = r[n_pre:].reshape(Fn, W1 * 2)
+
+        # Jacobi equilibration of the state columns (as in "cholesky")
+        s = 1.0 / (torch.linalg.vector_norm(J_s, dim=0) + 1e-6)
+        Js_sc = J_s * s[None, :]
+        A = Js_sc.T @ Js_sc  # (S, S)
+        g_s = Js_sc.T @ (-r)
+        C = torch.sum(Jd * Jd, dim=1)  # (Fn,) diagonal depth block
+        B = torch.einsum("fks,fk->sf", Js_proj * s[None, None, :], Jd)
+        g_d = torch.sum(Jd * (-r_proj_rows), dim=1)
+        # LM damping: lam*I on the scaled state block; the depth block's
+        # scaled damping is lam*C (its own column norm²), i.e. C*(1+lam)
+        Cd = C * (1.0 + lam) + 1e-8
+        eyeS = torch.eye(S, dtype=dt, device=device)
+        Hs = A - (B / Cd[None, :]) @ B.T + (lam + 1e-7) * eyeS
+        rhs = g_s - B @ (g_d / Cd)
+        y = dense.cho_solve(dense.cholesky(Hs), rhs)
+        return torch.cat([s * y, (g_d - B.T @ y) / Cd])
+
+    J, r = jacfwd(_with_aux(res), has_aux=True)(zeros(D))
+    col = torch.linalg.vector_norm(J, dim=0) + 1e-6
+    eyeD = torch.eye(D, dtype=dt, device=device)
+    if cfg.solver == "cholesky":
+        # damped normal equations, Jacobi-equilibrated: with column
+        # scaling S = diag(1/col), solve (S J^T J S + lam I) y = S J^T b
+        s = 1.0 / col
+        Js = J * s[None, :]
+        H = Js.T @ Js + lam * eyeD
+        y = dense.cho_solve(dense.cholesky(H + 1e-7 * eyeD), Js.T @ (-r))
+        return s * y
+    # LM damping rows: sqrt(lam)*diag-scale per column, augmented QR
+    A = torch.cat([J, torch.sqrt(lam) * torch.diag(col)], dim=0)
+    b = torch.cat([-r, zeros(D)])
+    Q, R = torch.linalg.qr(A)
+    return dense.solve_triangular(R + 1e-8 * eyeD, Q.T @ b, lower=False)
+
+
+def _lm_prologue(ws, inv_depth, win: _Window, cfg: BAConfig):
+    """What the LM iterations share: (IMU whiteners, the frozen-depth mask,
+    the initial damping, the first cost, its robust weights)."""
+    dt = ws.Ps.dtype
+    whiten = imu_whiteners(win.pints, dtype=dt)
+    frozen = win.lidar_flag | (~win.feat_valid)
+    cost, w_proj = _eval_cost(ws, inv_depth, win, whiten, cfg)
+    lam = torch.full((), 1e-4, dtype=dt, device=ws.Ps.device)
+    return whiten, frozen, lam, cost, w_proj
+
+
+def _lm_iteration(ws, inv_depth, lam, cost, w_proj, win: _Window, whiten, frozen,
+                  cfg: BAConfig):
+    """One LM iteration: the step, the retraction, the frozen depths held,
+    the accept/reject. Returns (ws, inv_depth, lam, cost, w_proj, done)."""
+    S = cfg.d_state
+    d = _lm_step(ws, inv_depth, lam, w_proj, win, whiten, cfg)
+    ws2 = _retract_window(ws, d[:S], cfg)
+    inv2 = inv_depth + torch.where(frozen, torch.zeros_like(d[S:]), d[S:])
+    eval_cost = lambda ws_, inv_: _eval_cost(ws_, inv_, win, whiten, cfg)
+    return _lm_accept(ws, ws2, inv_depth, inv2, lam, cost, w_proj, eval_cost, cfg)
+
+
+def _lm_loop(iterate, cfg: BAConfig) -> int:
+    """The host loop over `iterate` (one LM iteration, returning the
+    convergence flag): one host read an iteration below the cap. Returns
+    the iterations taken."""
+    n_it = 0
+    for i in range(cfg.iterations):
+        with record_function("vio.ba_iter"):
+            done = iterate()
+            n_it = i + 1
+            if cfg.ftol > 0.0 and n_it < cfg.iterations and host_bool(done):
+                break
+    return n_it
+
+
+def _solve_eager(ws, inv_depth, win: _Window, cfg: BAConfig) -> BAResult:
+    whiten, frozen, lam, cost, w_proj = _lm_prologue(ws, inv_depth, win, cfg)
+
+    def iterate():
+        nonlocal ws, inv_depth, lam, cost, w_proj
+        ws, inv_depth, lam, cost, w_proj, done = _lm_iteration(
+            ws, inv_depth, lam, cost, w_proj, win, whiten, frozen, cfg)
+        return done
+
+    n_it = _lm_loop(iterate, cfg)
+    return BAResult(ws=ws, inv_depth=inv_depth, final_cost=cost, iterations=n_it)
+
+
+# ---------------------------------------------------------------------------
+# CUDA graphs: the same functions captured once per signature and replayed
+# ---------------------------------------------------------------------------
+
+CAPTURES = 0  # graphs captured in this process
+_GRAPHS: dict = {}  # signature -> captured graphs
+
+
+def _tmap(fn, x):
+    """`fn` over the tensors of a (nested) tuple or NamedTuple; None stays."""
+    if x is None:
+        return None
+    if isinstance(x, torch.Tensor):
+        return fn(x)
+    items = [_tmap(fn, y) for y in x]
+    return type(x)(*items) if hasattr(x, "_fields") else type(x)(items)
+
+
+def _leaves(x) -> list:
+    """The tensors of a (nested) tuple or NamedTuple in order, with None
+    where an optional one is left out."""
+    if x is None or isinstance(x, torch.Tensor):
+        return [x]
+    return [t for y in x for t in _leaves(y)]
+
+
+def _graphable(args) -> bool:
+    """Replay graphs where the inputs are on a card and no `torch.func`
+    transform, autograd or other capture is active; run eagerly otherwise."""
+    leaves = [t for t in _leaves(args) if t is not None]
+    return (leaves[0].is_cuda
+            and not torch._C._are_functorch_transforms_active()
+            and not (torch.is_grad_enabled() and any(t.requires_grad for t in leaves))
+            and not torch.cuda.is_current_stream_capturing())
+
+
+def _capture(fn):
+    """`fn` run once on a side stream (lazy handles and workspaces), then
+    captured: (the graph, what the captured call returned)."""
+    global CAPTURES
+    with record_function("vio.ba_capture"):
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            fn()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = fn()
+    CAPTURES += 1
+    return graph, out
+
+
+def _replay(graph) -> None:
+    with record_function("vio.ba_graph"):
+        graph.replay()
+
+
+class _Graphed:
+    """Static, contiguous copies of a call's tensor arguments; a call copies
+    its arguments in (`load`) before replaying."""
+
+    def __init__(self, args):
+        self.args = _tmap(lambda t: t.clone(memory_format=torch.contiguous_format), args)
+
+    def load(self, args) -> None:
+        for dst, src in zip(_leaves(self.args), _leaves(args)):
+            if dst is not None:
+                dst.copy_(src)
+
+
+class _SolveGraphs(_Graphed):
+    """`_lm_prologue` and `_lm_iteration` captured on static arguments. The
+    iteration writes its new carry (ws, inv_depth, lam, cost, w_proj) back
+    into its own inputs, so iterations after the first replay with no copy."""
+
+    def __init__(self, args, cfg: BAConfig):
+        super().__init__(args)
+        ws, inv_depth, win = self.args
+        self.prologue, (whiten, frozen, lam, cost, w_proj) = _capture(
+            lambda: _lm_prologue(ws, inv_depth, win, cfg))
+        self.carry = (ws, inv_depth, lam, cost, w_proj)
+        self.prologue.replay()  # the iteration warms up on this call's carry
+
+        def iteration():
+            *new, done = _lm_iteration(*self.carry, win, whiten, frozen, cfg)
+            for dst, src in zip(_leaves(self.carry), _leaves(tuple(new))):
+                dst.copy_(src)
+            return done
+
+        self.iteration, self.done = _capture(iteration)
+
+
+class _MargGraph(_Graphed):
+    """`_marginalize_old` captured on static arguments."""
+
+    def __init__(self, args, cfg: BAConfig):
+        super().__init__(args)
+        self.graph, self.out = _capture(lambda: _marginalize_old(*self.args, cfg))
+
+
+def _graphs(kind, args, cfg: BAConfig) -> _Graphed:
+    """The graphs of `kind` for this signature of `args` (every tensor's
+    shape, dtype and device; which are None) and `cfg`, captured at the
+    first call that has it, with this call's values loaded. Strides are left
+    out: a view of the preintegration's first bias (stride 0) and the same
+    values stored whole share the graphs."""
+    sig = tuple(None if t is None else (t.shape, t.dtype, t.device) for t in _leaves(args))
+    key = (kind, cfg, sig)
+    g = _GRAPHS.get(key)
+    if g is None:
+        g = _GRAPHS[key] = kind(args, cfg)
+    g.load(args)
+    return g
+
+
 def solve(
     ws: WindowState,
     inv_depth: torch.Tensor,
@@ -320,103 +591,29 @@ def solve(
     table_rt: torch.Tensor | None = None,
 ) -> BAResult:
     """Damped Gauss-Newton (adaptive Levenberg-Marquardt: reject
-    cost-increasing steps, scale the damping) with the configured solver."""
+    cost-increasing steps, scale the damping) with the configured solver.
+    On a card the prologue and each iteration replay CUDA graphs, captured
+    at the first call of each signature."""
     if cfg.solver not in ("qr", "cholesky", "schur"):
         raise ValueError(f"unknown BA solver {cfg.solver!r}")
-    dt, device = ws.Ps.dtype, ws.Ps.device
-    D, S, Fn = cfg.d_total, cfg.d_state, cfg.max_features
-    W1 = cfg.window + 1
-    zeros = lambda n: torch.zeros(n, dtype=dt, device=device)
-    Linv_imu = imu_whiteners(pints, dtype=dt)
-    frozen = lidar_flag | (~feat_valid)
+    win = _Window(table_obs, table_vel, table_obs_valid, table_start, feat_valid, lidar_flag,
+                  pints, frame_valid, prior, gravity, td0, table_rt)
+    args = (ws, inv_depth, win)
+    if not _graphable(args):
+        return _solve_eager(ws, inv_depth, win, cfg)
+    with torch.cuda.device(ws.Ps.device):
+        g = _graphs(_SolveGraphs, args, cfg)
+        _replay(g.prologue)
 
-    def eval_cost(ws_, inv_):
-        # one projection sweep serves both the robust weights and the cost
-        r0_proj, pmask = projection_residuals(
-            ws_, inv_, table_obs, table_vel, table_obs_valid,
-            table_start, feat_valid, td0, cfg, rt=table_rt,
-        )
-        w = robust_weights(r0_proj, pmask, cfg.cauchy_c)
-        r_prior = prior.r + prior.J @ state_minus(ws_, prior.ws_bar, cfg)
-        r_imu = imu_residuals(ws_, pints, frame_valid, gravity, cfg, whiten=Linv_imu).reshape(-1)
-        r = torch.cat([r_prior, r_imu, (r0_proj * w[..., None]).reshape(-1)])
-        return torch.sum(r * r), w
+        def iterate():
+            _replay(g.iteration)
+            return g.done
 
-    def step(ws, inv_depth, lam, w_proj):
-        """The LM step d (d_total,) at the incoming state. The robust weights
-        at that state are what the previous accept/reject evaluation already
-        computed."""
-
-        def res(d):
-            return full_residual(
-                d, ws, inv_depth, table_obs, table_vel, table_obs_valid,
-                table_start, feat_valid, lidar_flag, pints, frame_valid,
-                prior, gravity, td0, cfg, proj_weights=w_proj,
-                table_rt=table_rt, imu_whiten=Linv_imu,
-            )
-
-        if cfg.solver == "schur":
-            n_pre = S + cfg.window * 15  # prior + IMU rows precede proj rows
-            # state-block Jacobian: S tangent passes, the residual beside it
-            J_s, r = jacfwd(_with_aux(lambda d_s: res(torch.cat([d_s, zeros(Fn)]))),
-                            has_aux=True)(zeros(S))
-            # depth-block Jacobian: depth columns are row-disjoint (each depth
-            # touches only its feature's projection rows), so J_d @ 1 recovers
-            # every nonzero entry: one jvp, no F-wide jacfwd
-            _, Jd_rows = jvp(lambda d_d: res(torch.cat([zeros(S), d_d])),
-                             (zeros(Fn),), (torch.ones(Fn, dtype=dt, device=device),))
-            Jd = Jd_rows[n_pre:].reshape(Fn, W1 * 2)
-            Js_proj = J_s[n_pre:].reshape(Fn, W1 * 2, S)
-            r_proj_rows = r[n_pre:].reshape(Fn, W1 * 2)
-
-            # Jacobi equilibration of the state columns (as in "cholesky")
-            s = 1.0 / (torch.linalg.vector_norm(J_s, dim=0) + 1e-6)
-            Js_sc = J_s * s[None, :]
-            A = Js_sc.T @ Js_sc  # (S, S)
-            g_s = Js_sc.T @ (-r)
-            C = torch.sum(Jd * Jd, dim=1)  # (Fn,) diagonal depth block
-            B = torch.einsum("fks,fk->sf", Js_proj * s[None, None, :], Jd)
-            g_d = torch.sum(Jd * (-r_proj_rows), dim=1)
-            # LM damping: lam*I on the scaled state block; the depth block's
-            # scaled damping is lam*C (its own column norm²), i.e. C*(1+lam)
-            Cd = C * (1.0 + lam) + 1e-8
-            eyeS = torch.eye(S, dtype=dt, device=device)
-            Hs = A - (B / Cd[None, :]) @ B.T + (lam + 1e-7) * eyeS
-            rhs = g_s - B @ (g_d / Cd)
-            y = dense.cho_solve(dense.cholesky(Hs), rhs)
-            return torch.cat([s * y, (g_d - B.T @ y) / Cd])
-
-        J, r = jacfwd(_with_aux(res), has_aux=True)(zeros(D))
-        col = torch.linalg.vector_norm(J, dim=0) + 1e-6
-        eyeD = torch.eye(D, dtype=dt, device=device)
-        if cfg.solver == "cholesky":
-            # damped normal equations, Jacobi-equilibrated: with column
-            # scaling S = diag(1/col), solve (S J^T J S + lam I) y = S J^T b
-            s = 1.0 / col
-            Js = J * s[None, :]
-            H = Js.T @ Js + lam * eyeD
-            y = dense.cho_solve(dense.cholesky(H + 1e-7 * eyeD), Js.T @ (-r))
-            return s * y
-        # LM damping rows: sqrt(lam)*diag-scale per column, augmented QR
-        A = torch.cat([J, torch.sqrt(lam) * torch.diag(col)], dim=0)
-        b = torch.cat([-r, zeros(D)])
-        Q, R = torch.linalg.qr(A)
-        return dense.solve_triangular(R + 1e-8 * eyeD, Q.T @ b, lower=False)
-
-    cost, w_proj = eval_cost(ws, inv_depth)
-    lam = torch.as_tensor(1e-4, dtype=dt, device=device)
-    n_it = 0
-    for i in range(cfg.iterations):
-        with record_function("vio.ba_iter"):
-            d = step(ws, inv_depth, lam, w_proj)
-            ws2 = _retract_window(ws, d[:S], cfg)
-            inv2 = inv_depth + torch.where(frozen, torch.zeros_like(d[S:]), d[S:])
-            ws, inv_depth, lam, cost, w_proj, done = _lm_accept(
-                ws, ws2, inv_depth, inv2, lam, cost, w_proj, eval_cost, cfg)
-            n_it = i + 1
-            if cfg.ftol > 0.0 and n_it < cfg.iterations and host_bool(done):
-                break
-    return BAResult(ws=ws, inv_depth=inv_depth, final_cost=cost, iterations=n_it)
+        n_it = _lm_loop(iterate, cfg)
+        # the result must not alias the buffers the next call's replay writes
+        ws, inv_depth, _, cost, _ = g.carry
+        return BAResult(ws=_tmap(torch.clone, ws), inv_depth=inv_depth.clone(),
+                        final_cost=cost.clone(), iterations=n_it)
 
 
 # ---------------------------------------------------------------------------
@@ -455,29 +652,44 @@ def marginalize_old(
     """MARGIN_OLD: eliminate frame 0 (and the depths of features anchored
     there) from [prior + IMU(0,1) + frame-0 projections]; returns the new
     prior over the SHIFTED window layout (old frame k+1 -> new frame k), new
-    frame W unconstrained."""
+    frame W unconstrained. On a card it replays a CUDA graph, captured at
+    the first call of each signature."""
+    win = _Window(table_obs, table_vel, table_obs_valid, table_start, feat_valid, lidar_flag,
+                  pints, frame_valid, prior, gravity, td0, table_rt)
+    args = (ws, inv_depth, win)
+    if not _graphable(args):
+        return _marginalize_old(ws, inv_depth, win, cfg)
+    with torch.cuda.device(ws.Ps.device):
+        g = _graphs(_MargGraph, args, cfg)
+        _replay(g.graph)
+        return _tmap(torch.clone, g.out)
+
+
+def _marginalize_old(ws: WindowState, inv_depth: torch.Tensor, win: _Window,
+                     cfg: BAConfig) -> Prior:
     dt, device = ws.Ps.dtype, ws.Ps.device
     D, S, W = cfg.d_total, cfg.d_state, cfg.window
-    anchored = feat_valid & (table_start == 0)
+    anchored = win.feat_valid & (win.start == 0)
+    prior = win.prior
 
     # robust rescaling at the marginalization point
     r0_proj, pmask = projection_residuals(
-        ws, inv_depth, table_obs, table_vel, table_obs_valid,
-        table_start, anchored, td0, cfg, rt=table_rt,
+        ws, inv_depth, win.obs, win.vel, win.obs_valid, win.start, anchored, win.td0, cfg,
+        rt=win.rt,
     )
     w_proj = robust_weights(r0_proj, pmask, cfg.cauchy_c)
 
     def res(d):
         d_depth = d[S:]
         ws2 = _retract_window(ws, d[:S], cfg)
-        inv2 = inv_depth + torch.where(lidar_flag, torch.zeros_like(d_depth), d_depth)
+        inv2 = inv_depth + torch.where(win.lidar_flag, torch.zeros_like(d_depth), d_depth)
         r_prior = prior.r + prior.J @ state_minus(ws2, prior.ws_bar, cfg)
         # IMU factor 0->1 only
-        r_imu = imu_residuals(ws2, pints, frame_valid, gravity, cfg)[0]
+        r_imu = imu_residuals(ws2, win.pints, win.frame_valid, win.gravity, cfg)[0]
         # projections of frame-0 anchored features only
         r_proj, _ = projection_residuals(
-            ws2, inv2, table_obs, table_vel, table_obs_valid,
-            table_start, anchored, td0, cfg, rt=table_rt,
+            ws2, inv2, win.obs, win.vel, win.obs_valid, win.start, anchored, win.td0, cfg,
+            rt=win.rt,
         )
         r_proj = r_proj * w_proj[..., None]
         return torch.cat([r_prior, r_imu, r_proj.reshape(-1)])

@@ -216,3 +216,80 @@ def test_empty_prior_matches_jax(win):
     assert pt.J.shape == pj.J.shape and not pt.J.any() and not pt.r.any()
     for name in pt.ws_bar._fields:
         np.testing.assert_array_equal(getattr(pt.ws_bar, name).numpy(), np.asarray(getattr(pj.ws_bar, name)))
+
+
+class _ReplayByCall:
+    """A stand-in for a CUDA graph on the CPU: the capture runs the function
+    and keeps its outputs; a replay runs it again and writes the results
+    into those same tensors, as a graph's kernels write into its memory."""
+
+    def __init__(self, fn):
+        self.fn = fn
+        self.out = fn()
+
+    def replay(self):
+        for dst, src in zip(tba._leaves(self.out), tba._leaves(self.fn())):
+            dst.copy_(src)
+
+
+def _capture_by_call(fn):
+    tba.CAPTURES += 1
+    fn()  # the side-stream warm-up
+    g = _ReplayByCall(fn)
+    return g, g.out
+
+
+@pytest.mark.parametrize("solver", ["schur", "qr"])
+def test_graph_dispatch_carries_the_eager_iterations(win, monkeypatch, solver):
+    """The graph path's plumbing (static copies, the iteration writing its
+    carry back into its inputs, results that alias nothing a later replay
+    writes, one capture per signature) with each replay run as a call: bit
+    for bit the eager functions. On a card the same holds for the captured
+    graphs (tests/test_torch_cuda_ba_graph.py)."""
+    import contextlib
+
+    _, t = win
+    monkeypatch.setattr(tba, "_capture", _capture_by_call)
+    monkeypatch.setattr(tba, "_graphable", lambda args: True)
+    monkeypatch.setattr(torch.cuda, "device", lambda d: contextlib.nullcontext())
+    monkeypatch.setattr(tba, "_GRAPHS", {})
+    cfg = dataclasses.replace(t["cfg"], solver=solver, iterations=4)
+    args = list(_args(t, cfg))
+    rt = t["table"].rt
+    window = lambda a: tba._Window(*a[2:13], rt)
+    n = tba.CAPTURES
+    first = tba.solve(*args, table_rt=rt)
+    prior = tba.marginalize_old(*args, table_rt=rt)
+    assert tba.CAPTURES == n + 3 and len(tba._GRAPHS) == 2
+    kept = tba._tmap(torch.clone, (first.ws, first.inv_depth, prior))
+    want = tba._solve_eager(args[0], args[1], window(args), cfg)
+    args[0], args[1], args[10] = first.ws._replace(Ps=first.ws.Ps + 0.01), first.inv_depth, prior
+    second = tba.solve(*args, table_rt=rt)
+    prior2 = tba.marginalize_old(*args, table_rt=rt)
+    assert tba.CAPTURES == n + 3
+    want2 = tba._solve_eager(args[0], args[1], window(args), cfg)
+    for got, ref in ((first, want), (second, want2)):
+        assert got.iterations == ref.iterations
+        for a, b in zip(tba._leaves((got.ws, got.inv_depth, got.final_cost)),
+                        tba._leaves((ref.ws, ref.inv_depth, ref.final_cost))):
+            assert torch.equal(a, b)
+    for a, b in zip(tba._leaves(prior2), tba._leaves(tba._marginalize_old(
+            args[0], args[1], window(args), cfg))):
+        assert torch.equal(a, b)
+    for a, b in zip(tba._leaves((first.ws, first.inv_depth, prior)), tba._leaves(kept)):
+        assert torch.equal(a, b)
+
+
+def test_the_cpu_runs_eagerly_and_opens_no_graph_span(win):
+    from torch.profiler import ProfilerActivity, profile
+
+    _, t = win
+    n = tba.CAPTURES
+    cfg = dataclasses.replace(t["cfg"], solver="schur", iterations=2)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        res = tba.solve(*_args(t, cfg), table_rt=t["table"].rt)
+        tba.marginalize_old(*_args(t, cfg), table_rt=t["table"].rt)
+    names = {e.name for e in prof.events()}
+    assert "vio.ba_iter" in names and res.iterations == 2
+    assert not names & {"vio.ba_graph", "vio.ba_capture"}
+    assert tba.CAPTURES == n

@@ -188,3 +188,39 @@ def test_coverage_and_launches_by_containment():
     assert s.coverage_pct() == pytest.approx(100.0 * 60 / 200)
     assert s.launches_in("vio.ba") == 2 and s.launches_in("lvi.image") == 3
     assert s.count(*_spans.ROOTS) == 2 and s.ms("vio.ba", "vio.marg") == pytest.approx(0.03)
+
+
+def _graph_trace(replays: bool, root: bool = True) -> Trace:
+    """A frame whose two LM iterations and marginalization each hold a
+    ``vio.ba_graph`` span (or none), under an ``lvi.image`` root (or
+    none); the prologue's replay sits outside the iterations."""
+    ev = [_ev("vio.ba", 10, 60), _ev("vio.ba_iter", 20, 20), _ev("vio.ba_iter", 45, 20),
+          _ev("vio.marg", 75, 10)]
+    if root:
+        ev.append(_ev("lvi.image", 0, 100))
+    if replays:
+        ev += [_ev("vio.ba_graph", 12, 3), _ev("vio.ba_graph", 22, 5),
+               _ev("vio.ba_graph", 47, 5), _ev("vio.ba_graph", 76, 4)]
+    return Trace(ev, 1.0)
+
+
+@pytest.mark.parametrize("case,want", [("replays", 100.0), ("eager", 0.0), ("no_root", None),
+                                       ("parent", None)])
+def test_graph_share_reads_the_spans_holding_a_replay(monkeypatch, case, want):
+    """100 where every iteration and marginalization replays a graph, 0
+    where none does, None without a root or from a program that replays
+    no graphs (no ``ops.ba.CAPTURES``, as before graphs)."""
+    if case == "parent":
+        monkeypatch.delattr(ba, "CAPTURES")
+    tr = _graph_trace(replays=case in ("replays", "parent"), root=case != "no_root")
+    got = spec.reader("vio.ba_graph_share")({"trace": tr})
+    assert got == want
+
+
+def test_graph_share_counts_each_span_once():
+    """One iteration of two without a replay reads 2 of 3 spans."""
+    ev = [_ev("lvi.image", 0, 100), _ev("vio.ba_iter", 20, 20), _ev("vio.ba_iter", 45, 20),
+          _ev("vio.marg", 75, 10), _ev("vio.ba_graph", 22, 5), _ev("vio.ba_graph", 24, 5),
+          _ev("vio.ba_graph", 76, 4)]
+    got = spec.reader("vio.ba_graph_share")({"trace": Trace(ev, 1.0)})
+    assert got == pytest.approx(100.0 * 2 / 3)
