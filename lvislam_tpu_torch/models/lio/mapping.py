@@ -8,6 +8,13 @@ solve, keyframe insertion, map rebuild, graph optimization, loop closure) as
 Python branches on one host read each (``core.hostsync``). The state is
 never updated in place: every step returns new tensors, as the JAX step
 does, so a caller's reference to an older state stays valid.
+
+Profiler ranges: ``lio.keyframe``, ``lio.posegraph`` (each graph solve),
+``lio.map_rebuild`` (each full rebuild of the local map), and in loop
+closure ``lio.loop_icp`` (a candidate's submap and ICP, up to the gate's
+host read) and ``lio.loop_factor`` (each loop factor inserted). The
+counters ``LOOP_CHECKS`` and ``LOOPS_ADDED`` count the candidates verified
+by ICP and the loop factors inserted in this process.
 """
 
 from __future__ import annotations
@@ -29,6 +36,9 @@ from ...ops import scan2map
 from ...ops import voxel_hash as vh
 from ...ops.segment import scatter_add, scatter_set, set_rows
 from .frontend import FeatureResult
+
+LOOP_CHECKS = 0  # loop candidates verified by ICP in this process
+LOOPS_ADDED = 0  # loop factors inserted in this process
 
 
 @dataclasses.dataclass(frozen=True)
@@ -499,54 +509,56 @@ def _full_map_rebuild(state: LioMapState, caps: LioCaps, params: LioParams,
                       scan_time, track_incremental: bool):
     """Re-assemble + re-downsample the local map, rebuild both hashes and
     reset the incremental bookkeeping."""
-    mc, mc_val, ms, ms_val = _assemble_local_map(state, caps, params, scan_time)
-    state = state._replace(
-        map_corner=mc, map_corner_valid=mc_val, map_surf=ms, map_surf_valid=ms_val,
-        corner_hash=vh.build(mc, mc_val, 1.0, caps.corner_hash_size, caps.hash_bucket),
-        surf_hash=vh.build(ms, ms_val, 1.0, caps.surf_hash_size, caps.surf_hash_bucket),
-    )
-    if not track_incremental:
-        return state
-    dev = mc.device
+    with record_function("lio.map_rebuild"):
+        mc, mc_val, ms, ms_val = _assemble_local_map(state, caps, params, scan_time)
+        state = state._replace(
+            map_corner=mc, map_corner_valid=mc_val, map_surf=ms, map_surf_valid=ms_val,
+            corner_hash=vh.build(mc, mc_val, 1.0, caps.corner_hash_size, caps.hash_bucket),
+            surf_hash=vh.build(ms, ms_val, 1.0, caps.surf_hash_size, caps.surf_hash_bucket),
+        )
+        if not track_incremental:
+            return state
+        dev = mc.device
 
-    def leaves(pts, val, leaf, table, capacity):
-        occ, ok, slot, _ = _claim_new_leaves(
-            torch.full((table,), -1, dtype=torch.int16, device=dev), pts, val, leaf)
-        rows = scatter_set(
-            torch.full((table,), -1, dtype=torch.int32, device=dev),
-            torch.where(ok, slot, torch.full_like(slot, table)),
-            torch.arange(capacity, dtype=torch.int32, device=dev))
-        return occ, rows
+        def leaves(pts, val, leaf, table, capacity):
+            occ, ok, slot, _ = _claim_new_leaves(
+                torch.full((table,), -1, dtype=torch.int16, device=dev), pts, val, leaf)
+            rows = scatter_set(
+                torch.full((table,), -1, dtype=torch.int32, device=dev),
+                torch.where(ok, slot, torch.full_like(slot, table)),
+                torch.arange(capacity, dtype=torch.int32, device=dev))
+            return occ, rows
 
-    occ_c, lr_c = leaves(mc, mc_val, params.mappingCornerLeafSize,
-                         caps.corner_leaf_table, caps.map_corner)
-    occ_s, lr_s = leaves(ms, ms_val, params.mappingSurfLeafSize,
-                         caps.surf_leaf_table, caps.map_surf)
-    return state._replace(
-        map_corner_n=torch.sum(mc_val, dtype=torch.int32),
-        map_surf_n=torch.sum(ms_val, dtype=torch.int32),
-        kf_since_rebuild=torch.zeros_like(state.kf_since_rebuild),
-        leaf_occ_corner=occ_c, leaf_occ_surf=occ_s,
-        leaf_row_corner=lr_c, leaf_row_surf=lr_s,
-        map_corner_accum=torch.where(mc_val[:, None], mc, torch.zeros_like(mc)),
-        map_corner_cnt=mc_val.to(state.map_corner_cnt.dtype),
-        map_surf_accum=torch.where(ms_val[:, None], ms, torch.zeros_like(ms)),
-        map_surf_cnt=ms_val.to(state.map_surf_cnt.dtype),
-    )
+        occ_c, lr_c = leaves(mc, mc_val, params.mappingCornerLeafSize,
+                             caps.corner_leaf_table, caps.map_corner)
+        occ_s, lr_s = leaves(ms, ms_val, params.mappingSurfLeafSize,
+                             caps.surf_leaf_table, caps.map_surf)
+        return state._replace(
+            map_corner_n=torch.sum(mc_val, dtype=torch.int32),
+            map_surf_n=torch.sum(ms_val, dtype=torch.int32),
+            kf_since_rebuild=torch.zeros_like(state.kf_since_rebuild),
+            leaf_occ_corner=occ_c, leaf_occ_surf=occ_s,
+            leaf_row_corner=lr_c, leaf_row_surf=lr_s,
+            map_corner_accum=torch.where(mc_val[:, None], mc, torch.zeros_like(mc)),
+            map_corner_cnt=mc_val.to(state.map_corner_cnt.dtype),
+            map_surf_accum=torch.where(ms_val[:, None], ms, torch.zeros_like(ms)),
+            map_surf_cnt=ms_val.to(state.map_surf_cnt.dtype),
+        )
 
 
 def _optimize_graph(state: LioMapState, k: int):
     """Batch solve + pose rewrite when loop/GPS factors are pending
     (`correctPoses`, `:1615-1646`); k is the newest keyframe."""
-    g = pg.optimize(state.graph, gn_iters=6, pcg_iters=96)
-    keep = g.node_valid[:, None]
-    return state._replace(
-        graph=g,
-        kf_trans=torch.where(keep, g.trans, state.kf_trans),
-        kf_quat=torch.where(keep, g.quat, state.kf_quat),
-        x6=_tq_to_x6(g.trans[k], g.quat[k]),
-        loop_pending=torch.zeros_like(state.loop_pending),
-    )
+    with record_function("lio.posegraph"):
+        g = pg.optimize(state.graph, gn_iters=6, pcg_iters=96)
+        keep = g.node_valid[:, None]
+        return state._replace(
+            graph=g,
+            kf_trans=torch.where(keep, g.trans, state.kf_trans),
+            kf_quat=torch.where(keep, g.quat, state.kf_quat),
+            x6=_tq_to_x6(g.trans[k], g.quat[k]),
+            loop_pending=torch.zeros_like(state.loop_pending),
+        )
 
 
 class MapPrologue(NamedTuple):
@@ -730,7 +742,27 @@ class LoopResult(NamedTuple):
 
 def _loop_icp(state: LioMapState, cur, cand, caps: LioCaps, params: LioParams):
     """Submap ICP verification + loop factor insertion for a (cur, cand)
-    keyframe pair (`performLoopClosure`, `:549-628`)."""
+    keyframe pair (`performLoopClosure`, `:549-628`); no factor once
+    `max_loops` are in."""
+    global LOOP_CHECKS, LOOPS_ADDED
+    LOOP_CHECKS += 1
+    with record_function("lio.loop_icp"):
+        res = _submap_icp(state, cur, cand, caps, params)
+        good = res.fitness < params.historyKeyframeFitnessScore
+        result = LoopResult(found=good, kf_from=cur, kf_to=cand, fitness=res.fitness)
+        add = host_bool(good & (state.n_loops < caps.max_loops))
+    if not add:
+        return state, result
+    with record_function("lio.loop_factor"):
+        state = _add_loop_factor(state, cur, cand, res, caps)
+    LOOPS_ADDED += 1
+    return state, result
+
+
+def _submap_icp(state: LioMapState, cur, cand, caps: LioCaps, params: LioParams):
+    """ICP of keyframe `cur`'s cloud against the submap of the
+    2 x historyKeyframeSearchNum + 1 keyframes around `cand`
+    (`loopFindNearKeyframes`), both in the map frame."""
     K = caps.max_keyframes
     dev = state.x6.device
     cur_t = state.kf_trans[cur]
@@ -764,22 +796,25 @@ def _loop_icp(state: LioMapState, cur, cand, caps: LioCaps, params: LioParams):
              - params.mappingSurfLeafSize)
     srcv = srcv & (lie.norm3(src_w - cand_t[None, :]) <= r_cov)
 
-    res = icp_ops.icp_point2point(
+    return icp_ops.icp_point2point(
         src_w, srcv, tgt_ds, tgt_val,
         torch.zeros(3, dtype=src.dtype, device=dev), lie.quat_identity(src.dtype, dev),
         max_corr_dist=params.historyKeyframeSearchRadius * 2.0,
         iters=caps.icp_iters,
     )
-    good = res.fitness < params.historyKeyframeFitnessScore
-    result = LoopResult(found=good, kf_from=cur, kf_to=cand, fitness=res.fitness)
-    if not host_bool(good & (state.n_loops < caps.max_loops)):
-        return state, result
 
+
+def _add_loop_factor(state: LioMapState, cur, cand, res, caps: LioCaps):
+    """`addLoopFactor`: the factor cur -> cand at slot K + n_loops, weighted
+    by the ICP's fitness, and the marginal's collapse onto the anchor."""
+    K = caps.max_keyframes
+    dev = state.x6.device
+    cur_t = state.kf_trans[cur]
     # corrected current pose T_corr = ICP ∘ T_cur; factor cur -> cand
     t_cor, q_cor = lie.se3_compose(res.trans, res.quat, cur_t, state.kf_quat[cur])
     ti, qi = lie.se3_relative(t_cor, q_cor, state.kf_trans[cand], state.kf_quat[cand])
     noise = torch.clamp(res.fitness, min=1e-6)
-    sqrtw = torch.full((6,), 1.0, dtype=src.dtype, device=dev) / torch.sqrt(noise)
+    sqrtw = torch.full((6,), 1.0, dtype=cur_t.dtype, device=dev) / torch.sqrt(noise)
     f = K + state.n_loops  # loop slots follow the K-1 odometry slots
     g = state.graph
     g = g._replace(
@@ -795,7 +830,7 @@ def _loop_icp(state: LioMapState, cur, cand, caps: LioCaps, params: LioParams):
                           state.kf_cov_xy[cand] + noise + lever2 * yaw_l)
     cross_l = torch.minimum(state.pose_cov_cross,
                             state.kf_cov_cross[cand] + torch.sqrt(lever2) * yaw_l)
-    state = state._replace(
+    return state._replace(
         graph=g, n_loops=state.n_loops + 1,
         loop_pending=torch.ones_like(state.loop_pending),
         last_loop_kf=cur.to(torch.int32),
@@ -804,7 +839,6 @@ def _loop_icp(state: LioMapState, cur, cand, caps: LioCaps, params: LioParams):
         kf_yaw_var=_at(state.kf_yaw_var, cur, yaw_l),
         kf_cov_cross=_at(state.kf_cov_cross, cur, cross_l),
     )
-    return state, result
 
 
 def loop_closure_step(state: LioMapState, caps: LioCaps, params: LioParams):

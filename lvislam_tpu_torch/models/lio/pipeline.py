@@ -6,10 +6,11 @@ The input contract is unchanged: ``pack_scan`` quantizes one scan, its IMU
 window and the misc flags into the same flat int16 buffer as the JAX
 package (3 mm position and 4 µs time quanta, bit-cast floats), and
 ``lio_full_step`` unpacks it on the device. Profiler ranges (``lio.*``:
-``lio.pack``, ``lio.frontend``, ``lio.scan_to_map`` with a ``lio.gn_iter``
-an iteration, ``lio.keyframe``, ``lio.loop_closure``) name the step's
-stages in a ``torch.profiler`` trace and cost nothing measurable when no
-profiler runs.
+``lio.pack``; ``lio.step``, the root of each step, around ``lio.frontend``,
+``lio.scan_to_map`` with a ``lio.gn_iter`` an iteration, ``lio.keyframe``
+and ``lio.loop_closure``, and ``models/lio/mapping``'s ranges inside them)
+name the step's stages in a ``torch.profiler`` trace and cost nothing
+measurable when no profiler runs.
 
 The batched-upload transport of the JAX package is here too: with
 ``LioConfig.upload_batch`` = K > 1, ``process_scan`` stages the packed
@@ -124,17 +125,18 @@ def lio_full_step(state: mapping.LioMapState, packed: torch.Tensor, odom_overrid
     the buffer asks for it, the loop closure. `odom_override`, a device tuple
     (avail, trans(3), quat(4), reset_id), replaces the packed odom fields:
     the fused replay keeps exchange 1 on the device (``models/replay.py``)."""
-    scan_info, feats = scan_features(packed, **front)
-    if odom_override is not None:
-        avail, trans, quat, reset_id = odom_override
-        scan_info.update(odom_available=avail, odom_trans=trans, odom_quat=quat,
-                         odom_reset_id=reset_id.to(torch.int32))
-    caps = front["caps"]
-    state, out = mapping.map_step(state, scan_info, feats, caps, params)
-    if host_bool(scan_info["do_loop"] & (state.kf_count > 1)):
-        with record_function("lio.loop_closure"):
-            state, _ = mapping.loop_closure_step(state, caps, params)
-    return state, out
+    with record_function("lio.step"):
+        scan_info, feats = scan_features(packed, **front)
+        if odom_override is not None:
+            avail, trans, quat, reset_id = odom_override
+            scan_info.update(odom_available=avail, odom_trans=trans, odom_quat=quat,
+                             odom_reset_id=reset_id.to(torch.int32))
+        caps = front["caps"]
+        state, out = mapping.map_step(state, scan_info, feats, caps, params)
+        if host_bool(scan_info["do_loop"] & (state.kf_count > 1)):
+            with record_function("lio.loop_closure"):
+                state, _ = mapping.loop_closure_step(state, caps, params)
+        return state, out
 
 
 def lio_full_step_row(state: mapping.LioMapState, arr: torch.Tensor, k: int, **kw):

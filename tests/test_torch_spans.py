@@ -46,6 +46,7 @@ SPANS = {
     "loop.detect": ("lvi.image", "lvi.image"),
     "lio.guess": ("lvi.lidar", "lvi.lidar"),
     "lio.pack": ("lvi.lidar", "lvi.lidar"),
+    "lio.step": ("lvi.lidar", "lvi.lidar"),
     "lio.frontend": ("lvi.lidar", "lvi.lidar"),
     "lio.scan_to_map": ("lvi.lidar", "lvi.lidar"),
     "lio.gn_iter": ("lvi.lidar", "lio.scan_to_map"),
