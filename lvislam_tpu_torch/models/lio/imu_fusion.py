@@ -13,16 +13,24 @@ form: forming JᵀJ in f32 wipes out the low-weight lidar-correction rows next
 to the 1e4-weight whitened IMU rows. Failure detection and the reset-id
 protocol are `torch.where` selects on every field, so ``fusion_correct``
 never reads a value back to the host.
+
+On a card ``fusion_correct`` replays a CUDA graph of `_correct` (the same
+kernels on the same data, so the same bits), captured at the first call of
+each signature of its inputs by ``core/cudagraph.py``; on the CPU and under
+``torch.func`` or autograd `_correct` runs eagerly. Spans:
+``lio.fusion_graph`` around each replay, ``lio.fusion_capture`` around each
+capture; ``CAPTURES`` counts the captures.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import NamedTuple
 
 import torch
 
-from ...core import lie
+from ...core import cudagraph, lie
 from ...core.device import resolve as resolve_device
 from ...ops import dense
 from ...ops import preintegration as pre
@@ -101,6 +109,34 @@ def _state_minus(pos, quat, vel, ba, bg, pos0, quat0, vel0, ba0, bg0):
     ])
 
 
+class _Constants(NamedTuple):
+    """What a correction used to build on the host at every call, built once
+    for each (params, dtype, device) with the same bits: a CUDA graph
+    capture refuses the host copy that ``torch.tensor`` makes."""
+
+    noise: pre.ImuNoise
+    G: torch.Tensor  # (3,) [0, 0, imuGravity]
+    corr_sigma: torch.Tensor  # (6,) [trans x 3, rot x 3]
+    corr_sigma_degenerate: torch.Tensor  # (6,)
+    fresh: FusionState  # `fusion_init`: the failure reset
+
+
+@functools.cache
+def _constants(params: FusionParams, dtype, device: torch.device) -> _Constants:
+    return _Constants(
+        noise=pre.ImuNoise.create(
+            params.imuAccNoise, params.imuGyrNoise,
+            params.imuAccBiasN, params.imuGyrBiasN, dtype, device,
+        ),
+        G=torch.tensor([0.0, 0.0, params.imuGravity], dtype=dtype, device=device),
+        corr_sigma=torch.tensor([params.corrTransSigma] * 3 + [params.corrRotSigma] * 3,
+                                dtype=dtype, device=device),
+        corr_sigma_degenerate=torch.full((6,), params.corrDegenerateSigma, dtype=dtype,
+                                         device=device),
+        fresh=fusion_init(params, dtype, device),
+    )
+
+
 def fusion_correct(
     state: FusionState,
     dts: torch.Tensor,  # (N,) IMU sample dts since last correction (0 = pad)
@@ -112,13 +148,26 @@ def fusion_correct(
     params: FusionParams,
     gn_iters: int = 4,
 ) -> FusionState:
-    """One `odometryHandler` correction. Returns the new state."""
+    """One `odometryHandler` correction. Returns the new state. On a card it
+    replays a CUDA graph of `_correct`, captured at the first call of each
+    signature of its inputs (shapes, dtypes, device, `params`, `gn_iters`);
+    on the CPU and under ``torch.func`` or autograd `_correct` runs eagerly."""
+    args = (state, dts, accs, gyrs, lidar_trans, lidar_quat, degenerate)
+    if not cudagraph.graphable(args):
+        return _correct(*args, params, gn_iters,
+                        _constants(params, state.pos.dtype, state.pos.device))
+    with torch.cuda.device(state.pos.device):
+        g = cudagraph.cached(_GRAPHS, _CorrectGraph, args, (params, gn_iters))
+        cudagraph.replay(g.graph, "lio.fusion_graph")
+        # the result must not alias the buffers the next call's replay writes
+        return cudagraph.tmap(torch.clone, g.out)
+
+
+def _correct(state: FusionState, dts, accs, gyrs, lidar_trans, lidar_quat, degenerate,
+             params: FusionParams, gn_iters: int, consts: _Constants) -> FusionState:
+    """`fusion_correct` on its inputs and `_constants(params, ...)`."""
     dtype, device = state.pos.dtype, state.pos.device
-    noise = pre.ImuNoise.create(
-        params.imuAccNoise, params.imuGyrNoise,
-        params.imuAccBiasN, params.imuGyrBiasN, dtype, device,
-    )
-    G = torch.tensor([0.0, 0.0, params.imuGravity], dtype=dtype, device=device)
+    noise, G = consts.noise, consts.G
     eye15 = torch.eye(15, dtype=dtype, device=device)
 
     # preintegrate the window at the current bias linearization point
@@ -128,12 +177,7 @@ def fusion_correct(
     Lc = dense.cholesky(pint.covariance + 1e-8 * eye15)
     imu_sqrt_info = dense.solve_triangular(Lc, eye15, lower=True)
 
-    corr_sigma = torch.where(
-        degenerate,
-        torch.full((6,), params.corrDegenerateSigma, dtype=dtype, device=device),
-        torch.tensor([params.corrTransSigma] * 3 + [params.corrRotSigma] * 3,
-                     dtype=dtype, device=device),
-    )
+    corr_sigma = torch.where(degenerate, consts.corr_sigma_degenerate, consts.corr_sigma)
     corr_w = 1.0 / corr_sigma
 
     # initial guess for the new state: IMU prediction
@@ -188,7 +232,7 @@ def fusion_correct(
         | (lie.norm3(bg1) > params.maxBias)
     )
 
-    fresh = fusion_init(params, dtype, device)
+    fresh = consts.fresh
     return FusionState(
         pos=torch.where(failed, fresh.pos, p1),
         quat=torch.where(failed, fresh.quat, q1),
@@ -200,6 +244,33 @@ def fusion_correct(
         failed=failed,
         reset_id=state.reset_id + failed.to(torch.int32),
     )
+
+
+# ---------------------------------------------------------------------------
+# CUDA graphs: `_correct` captured once per signature and replayed
+# ---------------------------------------------------------------------------
+
+CAPTURES = 0  # graphs captured in this process
+_GRAPHS: dict = {}  # signature -> captured graph
+
+
+def _capture(fn):
+    global CAPTURES
+    out = cudagraph.capture(fn, "lio.fusion_capture")
+    CAPTURES += 1
+    return out
+
+
+class _CorrectGraph(cudagraph.Graphed):
+    """`_correct` captured on static arguments; its constants are static
+    inputs that no call reloads (the key fixes them)."""
+
+    def __init__(self, args, key):
+        super().__init__(args)
+        params, gn_iters = key
+        pos = self.args[0].pos
+        consts = _constants(params, pos.dtype, pos.device)
+        self.graph, self.out = _capture(lambda: _correct(*self.args, params, gn_iters, consts))
 
 
 def fusion_initialize(state: FusionState, lidar_trans: torch.Tensor,

@@ -27,7 +27,8 @@ each captured once per signature of their inputs (shapes, dtypes, device,
 the ``BAConfig``) as a CUDA graph and replayed: thousands of small
 launches from Python become one. The captured functions are the eager ones
 (``_lm_prologue``, ``_lm_iteration``, ``_marginalize_old``), which run as
-they are on the CPU and under ``torch.func`` or autograd. Spans:
+they are on the CPU and under ``torch.func`` or autograd
+(``core/cudagraph.py`` holds the capture code the smoother shares). Spans:
 ``vio.ba_graph`` around each replay, ``vio.ba_capture`` around each capture.
 """
 
@@ -40,7 +41,7 @@ import torch
 from torch.func import jacfwd, jvp
 from torch.profiler import record_function
 
-from ..core import lie
+from ..core import cudagraph, lie
 from ..core.device import resolve as resolve_device
 from ..core.hostsync import host_bool
 from . import dense
@@ -470,70 +471,18 @@ CAPTURES = 0  # graphs captured in this process
 _GRAPHS: dict = {}  # signature -> captured graphs
 
 
-def _tmap(fn, x):
-    """`fn` over the tensors of a (nested) tuple or NamedTuple; None stays."""
-    if x is None:
-        return None
-    if isinstance(x, torch.Tensor):
-        return fn(x)
-    items = [_tmap(fn, y) for y in x]
-    return type(x)(*items) if hasattr(x, "_fields") else type(x)(items)
-
-
-def _leaves(x) -> list:
-    """The tensors of a (nested) tuple or NamedTuple in order, with None
-    where an optional one is left out."""
-    if x is None or isinstance(x, torch.Tensor):
-        return [x]
-    return [t for y in x for t in _leaves(y)]
-
-
-def _graphable(args) -> bool:
-    """Replay graphs where the inputs are on a card and no `torch.func`
-    transform, autograd or other capture is active; run eagerly otherwise."""
-    leaves = [t for t in _leaves(args) if t is not None]
-    return (leaves[0].is_cuda
-            and not torch._C._are_functorch_transforms_active()
-            and not (torch.is_grad_enabled() and any(t.requires_grad for t in leaves))
-            and not torch.cuda.is_current_stream_capturing())
-
-
 def _capture(fn):
-    """`fn` run once on a side stream (lazy handles and workspaces), then
-    captured: (the graph, what the captured call returned)."""
     global CAPTURES
-    with record_function("vio.ba_capture"):
-        side = torch.cuda.Stream()
-        side.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(side):
-            fn()
-        torch.cuda.current_stream().wait_stream(side)
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
-            out = fn()
+    out = cudagraph.capture(fn, "vio.ba_capture")
     CAPTURES += 1
-    return graph, out
+    return out
 
 
 def _replay(graph) -> None:
-    with record_function("vio.ba_graph"):
-        graph.replay()
+    cudagraph.replay(graph, "vio.ba_graph")
 
 
-class _Graphed:
-    """Static, contiguous copies of a call's tensor arguments; a call copies
-    its arguments in (`load`) before replaying."""
-
-    def __init__(self, args):
-        self.args = _tmap(lambda t: t.clone(memory_format=torch.contiguous_format), args)
-
-    def load(self, args) -> None:
-        for dst, src in zip(_leaves(self.args), _leaves(args)):
-            if dst is not None:
-                dst.copy_(src)
-
-
-class _SolveGraphs(_Graphed):
+class _SolveGraphs(cudagraph.Graphed):
     """`_lm_prologue` and `_lm_iteration` captured on static arguments. The
     iteration writes its new carry (ws, inv_depth, lam, cost, w_proj) back
     into its own inputs, so iterations after the first replay with no copy."""
@@ -548,34 +497,19 @@ class _SolveGraphs(_Graphed):
 
         def iteration():
             *new, done = _lm_iteration(*self.carry, win, whiten, frozen, cfg)
-            for dst, src in zip(_leaves(self.carry), _leaves(tuple(new))):
+            for dst, src in zip(cudagraph.leaves(self.carry), cudagraph.leaves(tuple(new))):
                 dst.copy_(src)
             return done
 
         self.iteration, self.done = _capture(iteration)
 
 
-class _MargGraph(_Graphed):
+class _MargGraph(cudagraph.Graphed):
     """`_marginalize_old` captured on static arguments."""
 
     def __init__(self, args, cfg: BAConfig):
         super().__init__(args)
         self.graph, self.out = _capture(lambda: _marginalize_old(*self.args, cfg))
-
-
-def _graphs(kind, args, cfg: BAConfig) -> _Graphed:
-    """The graphs of `kind` for this signature of `args` (every tensor's
-    shape, dtype and device; which are None) and `cfg`, captured at the
-    first call that has it, with this call's values loaded. Strides are left
-    out: a view of the preintegration's first bias (stride 0) and the same
-    values stored whole share the graphs."""
-    sig = tuple(None if t is None else (t.shape, t.dtype, t.device) for t in _leaves(args))
-    key = (kind, cfg, sig)
-    g = _GRAPHS.get(key)
-    if g is None:
-        g = _GRAPHS[key] = kind(args, cfg)
-    g.load(args)
-    return g
 
 
 def solve(
@@ -599,10 +533,10 @@ def solve(
     win = _Window(table_obs, table_vel, table_obs_valid, table_start, feat_valid, lidar_flag,
                   pints, frame_valid, prior, gravity, td0, table_rt)
     args = (ws, inv_depth, win)
-    if not _graphable(args):
+    if not cudagraph.graphable(args):
         return _solve_eager(ws, inv_depth, win, cfg)
     with torch.cuda.device(ws.Ps.device):
-        g = _graphs(_SolveGraphs, args, cfg)
+        g = cudagraph.cached(_GRAPHS, _SolveGraphs, args, cfg)
         _replay(g.prologue)
 
         def iterate():
@@ -612,7 +546,7 @@ def solve(
         n_it = _lm_loop(iterate, cfg)
         # the result must not alias the buffers the next call's replay writes
         ws, inv_depth, _, cost, _ = g.carry
-        return BAResult(ws=_tmap(torch.clone, ws), inv_depth=inv_depth.clone(),
+        return BAResult(ws=cudagraph.tmap(torch.clone, ws), inv_depth=inv_depth.clone(),
                         final_cost=cost.clone(), iterations=n_it)
 
 
@@ -657,12 +591,12 @@ def marginalize_old(
     win = _Window(table_obs, table_vel, table_obs_valid, table_start, feat_valid, lidar_flag,
                   pints, frame_valid, prior, gravity, td0, table_rt)
     args = (ws, inv_depth, win)
-    if not _graphable(args):
+    if not cudagraph.graphable(args):
         return _marginalize_old(ws, inv_depth, win, cfg)
     with torch.cuda.device(ws.Ps.device):
-        g = _graphs(_MargGraph, args, cfg)
+        g = cudagraph.cached(_GRAPHS, _MargGraph, args, cfg)
         _replay(g.graph)
-        return _tmap(torch.clone, g.out)
+        return cudagraph.tmap(torch.clone, g.out)
 
 
 def _marginalize_old(ws: WindowState, inv_depth: torch.Tensor, win: _Window,

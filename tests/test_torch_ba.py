@@ -21,6 +21,7 @@ import pytest
 import torch
 
 from lvislam_tpu.ops import ba as jba
+from lvislam_tpu_torch.core import cudagraph
 from lvislam_tpu_torch.ops import ba as tba
 from lvislam_tpu_torch.utils import convert
 from lvislam_tpu_torch.utils import synthetic as tsyn
@@ -228,7 +229,7 @@ class _ReplayByCall:
         self.out = fn()
 
     def replay(self):
-        for dst, src in zip(tba._leaves(self.out), tba._leaves(self.fn())):
+        for dst, src in zip(cudagraph.leaves(self.out), cudagraph.leaves(self.fn())):
             dst.copy_(src)
 
 
@@ -250,7 +251,7 @@ def test_graph_dispatch_carries_the_eager_iterations(win, monkeypatch, solver):
 
     _, t = win
     monkeypatch.setattr(tba, "_capture", _capture_by_call)
-    monkeypatch.setattr(tba, "_graphable", lambda args: True)
+    monkeypatch.setattr(cudagraph, "graphable", lambda args: True)
     monkeypatch.setattr(torch.cuda, "device", lambda d: contextlib.nullcontext())
     monkeypatch.setattr(tba, "_GRAPHS", {})
     cfg = dataclasses.replace(t["cfg"], solver=solver, iterations=4)
@@ -261,7 +262,7 @@ def test_graph_dispatch_carries_the_eager_iterations(win, monkeypatch, solver):
     first = tba.solve(*args, table_rt=rt)
     prior = tba.marginalize_old(*args, table_rt=rt)
     assert tba.CAPTURES == n + 3 and len(tba._GRAPHS) == 2
-    kept = tba._tmap(torch.clone, (first.ws, first.inv_depth, prior))
+    kept = cudagraph.tmap(torch.clone, (first.ws, first.inv_depth, prior))
     want = tba._solve_eager(args[0], args[1], window(args), cfg)
     args[0], args[1], args[10] = first.ws._replace(Ps=first.ws.Ps + 0.01), first.inv_depth, prior
     second = tba.solve(*args, table_rt=rt)
@@ -270,13 +271,13 @@ def test_graph_dispatch_carries_the_eager_iterations(win, monkeypatch, solver):
     want2 = tba._solve_eager(args[0], args[1], window(args), cfg)
     for got, ref in ((first, want), (second, want2)):
         assert got.iterations == ref.iterations
-        for a, b in zip(tba._leaves((got.ws, got.inv_depth, got.final_cost)),
-                        tba._leaves((ref.ws, ref.inv_depth, ref.final_cost))):
+        for a, b in zip(cudagraph.leaves((got.ws, got.inv_depth, got.final_cost)),
+                        cudagraph.leaves((ref.ws, ref.inv_depth, ref.final_cost))):
             assert torch.equal(a, b)
-    for a, b in zip(tba._leaves(prior2), tba._leaves(tba._marginalize_old(
+    for a, b in zip(cudagraph.leaves(prior2), cudagraph.leaves(tba._marginalize_old(
             args[0], args[1], window(args), cfg))):
         assert torch.equal(a, b)
-    for a, b in zip(tba._leaves((first.ws, first.inv_depth, prior)), tba._leaves(kept)):
+    for a, b in zip(cudagraph.leaves((first.ws, first.inv_depth, prior)), cudagraph.leaves(kept)):
         assert torch.equal(a, b)
 
 

@@ -18,6 +18,7 @@ import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile
 
+from lvislam_tpu_torch.core import cudagraph
 from lvislam_tpu_torch.ops import ba
 from lvislam_tpu_torch.utils import synthetic
 
@@ -71,7 +72,7 @@ def eager_marg(cfg, args, rt):
 
 
 def assert_bits(a, b):
-    la, lb = ba._leaves(a), ba._leaves(b)
+    la, lb = cudagraph.leaves(a), cudagraph.leaves(b)
     assert len(la) == len(lb)
     for x, y in zip(la, lb):
         assert x.dtype == y.dtype and x.shape == y.shape
@@ -108,7 +109,7 @@ def test_new_values_replay_without_a_capture(cuda):
     first = ba.solve(*args, cfg, table_rt=rt)
     first_prior = ba.marginalize_old(*args, cfg, table_rt=rt)
     outs = lambda: (first.ws, first.inv_depth, first.final_cost, first_prior)
-    kept = ba._tmap(torch.clone, outs())
+    kept = cudagraph.tmap(torch.clone, outs())
     n = ba.CAPTURES
     args2 = list(args)
     args2[0] = first.ws._replace(Ps=first.ws.Ps + 0.02)
@@ -157,12 +158,12 @@ def test_strided_inputs_share_the_graphs(cuda):
     `preint_init` makes them); stored whole they take the same graphs and
     give the same bits."""
     cfg, args, rt = window(cuda)
-    assert any(t.stride()[0] == 0 for t in ba._leaves(args[8]))
+    assert any(t.stride()[0] == 0 for t in cudagraph.leaves(args[8]))
     ba.solve(*args, cfg, table_rt=rt)
     ba.marginalize_old(*args, cfg, table_rt=rt)
     n = ba.CAPTURES
     dense = list(args)
-    dense[8] = ba._tmap(lambda t: t.contiguous().clone(), args[8])
+    dense[8] = cudagraph.tmap(lambda t: t.contiguous().clone(), args[8])
     assert_solves_equal(ba.solve(*dense, cfg, table_rt=rt), eager_solve(cfg, args, rt))
     assert_bits(ba.marginalize_old(*dense, cfg, table_rt=rt), eager_marg(cfg, args, rt))
     assert ba.CAPTURES == n

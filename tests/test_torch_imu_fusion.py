@@ -14,9 +14,12 @@ import pytest
 import torch
 from scipy.spatial.transform import Rotation as Rsc
 
+import torch_fusion_inputs as fin
+
 from lvislam_tpu.core import lie as jlie
 from lvislam_tpu.models.lio import imu_fusion as jfus
 from lvislam_tpu.utils import synthetic as jsyn
+from lvislam_tpu_torch.core import cudagraph
 from lvislam_tpu_torch.models.lio import imu_fusion as tfus
 from lvislam_tpu_torch.utils import convert
 from lvislam_tpu_torch.utils import synthetic as tsyn
@@ -227,3 +230,99 @@ def test_jax_fusion_over_replay_anchor():
             np.testing.assert_allclose(v, ref[key], rtol=1e-6, err_msg=key)
         else:
             assert v == ref[key], key
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("params", ["shipped", "walk"])
+def test_hoisted_constants_are_the_bits_the_correction_built(dtype, params):
+    """`_constants` against the expressions `fusion_correct` evaluated at
+    every call before they were hoisted out of it."""
+    p = tfus.FusionParams() if params == "shipped" else PT
+    c = tfus._constants(p, dtype, torch.device("cpu"))
+    noise = tfus.pre.ImuNoise.create(p.imuAccNoise, p.imuGyrNoise, p.imuAccBiasN,
+                                     p.imuGyrBiasN, dtype, "cpu")
+    old = {
+        "G": torch.tensor([0.0, 0.0, p.imuGravity], dtype=dtype),
+        "corr_sigma_degenerate": torch.full((6,), p.corrDegenerateSigma, dtype=dtype),
+        "corr_sigma": torch.tensor([p.corrTransSigma] * 3 + [p.corrRotSigma] * 3, dtype=dtype),
+    }
+    pairs = [(getattr(c, k), v) for k, v in old.items()]
+    pairs += list(zip(c.noise, noise)) + list(zip(c.fresh, tfus.fusion_init(p, dtype, "cpu")))
+    for new, want in pairs:
+        assert new.dtype == want.dtype and new.shape == want.shape and new.device == want.device
+        assert new.numpy().tobytes() == want.numpy().tobytes()
+    assert tfus._constants(p, dtype, torch.device("cpu")) is c
+
+
+@pytest.mark.parametrize("how", ["cpu", "jacfwd", "vmap"])
+def test_the_cpu_and_torch_func_run_the_correction_eagerly(how):
+    """On the CPU, and under a ``torch.func`` transform, `fusion_correct` is
+    `_correct` run eagerly: nothing captured."""
+    st, steps, _ = fin.corrections(24, "cpu")
+    dts, accs, gyrs, p, q, deg = steps[0]
+    consts = tfus._constants(fin.PARAMS, torch.float32, torch.device("cpu"))
+    eager = lambda t: tfus._correct(st, dts, accs, gyrs, t, q, deg, fin.PARAMS, 4, consts).pos
+    port = lambda t: tfus.fusion_correct(st, dts, accs, gyrs, t, q, deg, fin.PARAMS).pos
+    run = {"cpu": lambda f: f(p),
+           "jacfwd": lambda f: torch.func.jacfwd(f)(p),
+           "vmap": lambda f: torch.func.vmap(f)(torch.stack([p, p + 0.01]))}[how]
+    n = tfus.CAPTURES
+    got = run(port)
+    assert tfus.CAPTURES == n == 0
+    assert torch.equal(got, run(eager))
+
+
+class _ReplayByCall:
+    """A stand-in for a CUDA graph on the CPU: the capture runs the function
+    and keeps its outputs; a replay runs it again and writes the results
+    into those same tensors, as a graph's kernels write into its memory."""
+
+    def __init__(self, fn):
+        self.fn = fn
+        self.out = fn()
+
+    def replay(self):
+        for dst, src in zip(cudagraph.leaves(self.out), cudagraph.leaves(self.fn())):
+            dst.copy_(src)
+
+
+def _capture_by_call(fn):
+    tfus.CAPTURES += 1
+    fn()  # the side-stream warm-up
+    g = _ReplayByCall(fn)
+    return g, g.out
+
+
+def test_graph_dispatch_carries_the_eager_corrections(monkeypatch):
+    """The graph path's plumbing (static copies loaded each call, strided
+    views sharing the graph, results that alias nothing a later replay
+    writes, one capture per signature) with each replay run as a call: bit
+    for bit the eager corrections, through a degenerate one, a failure reset
+    and windows of 2-20 samples. On a card the same holds for the captured
+    graph (tests/test_torch_cuda_fusion_graph.py)."""
+    import contextlib
+
+    monkeypatch.setattr(tfus, "_capture", _capture_by_call)
+    monkeypatch.setattr(cudagraph, "graphable", lambda args: True)
+    monkeypatch.setattr(torch.cuda, "device", lambda d: contextlib.nullcontext())
+    monkeypatch.setattr(tfus, "_GRAPHS", {})
+    monkeypatch.setattr(tfus, "CAPTURES", 0)
+    st0, steps, counts = fin.corrections(24, "cpu")
+    assert len(set(counts)) > 3
+    consts = tfus._constants(fin.PARAMS, torch.float32, torch.device("cpu"))
+    got, want, kept = st0, st0, []
+    for k, (dts, accs, gyrs, p, q, deg) in enumerate(steps):
+        # the IMU columns as the pipeline passes them: views of one buffer
+        imu = torch.cat([dts[:, None], accs, gyrs], dim=1)
+        got = tfus.fusion_correct(got, dts, imu[:, 1:4], imu[:, 4:7], p, q, deg, fin.PARAMS)
+        want = tfus._correct(want, dts, accs, gyrs, p, q, deg, fin.PARAMS, 4, consts)
+        for a, b in zip(got, want):
+            assert a.dtype == b.dtype and a.numpy().tobytes() == b.numpy().tobytes(), k
+        assert bool(got.failed) == (k == fin.FAIL)
+        kept.append((got, cudagraph.tmap(torch.clone, got)))
+        if k == fin.FAIL:  # the system re-initializes at the next correction
+            got, want = (tfus.fusion_initialize(s, p, q, fin.PARAMS) for s in (got, want))
+    assert tfus.CAPTURES == 1 and len(tfus._GRAPHS) == 1
+    for out, copy in kept:
+        assert all(torch.equal(a, b) for a, b in zip(out, copy))
+

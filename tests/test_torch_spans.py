@@ -22,7 +22,7 @@ from benchmark import spec
 from benchmark.metrics import _spans
 from benchmark.trace import Trace
 from lvislam_tpu_torch.core import hostsync
-from lvislam_tpu_torch.models.lio import mapping
+from lvislam_tpu_torch.models.lio import imu_fusion, mapping
 from lvislam_tpu_torch.models.pipeline import LviSystem
 from lvislam_tpu_torch.ops import ba
 from lvislam_tpu_torch.scripts.bench_inputs import lvi_parity_config
@@ -225,3 +225,42 @@ def test_graph_share_counts_each_span_once():
           _ev("vio.ba_graph", 76, 4)]
     got = spec.reader("vio.ba_graph_share")({"trace": Trace(ev, 1.0)})
     assert got == pytest.approx(100.0 * 2 / 3)
+
+
+def _fusion_trace(replays: bool, root: bool = True) -> Trace:
+    """Two mapped sweeps whose ``lio.fusion`` spans each hold a
+    ``lio.fusion_graph`` span (or none), under ``lvi.lidar`` roots (or
+    none); a replay inside a root but outside its ``lio.fusion`` does not
+    count."""
+    ev = [_ev("lio.fusion", 20, 30), _ev("lio.fusion", 220, 30)]
+    if root:
+        ev += [_ev("lvi.lidar", 0, 100), _ev("lvi.lidar", 200, 100)]
+    if replays:
+        ev += [_ev("lio.fusion_graph", 25, 10), _ev("lio.fusion_graph", 230, 10)]
+    else:
+        ev.append(_ev("lio.fusion_graph", 60, 10))
+    return Trace(ev, 1.0)
+
+
+@pytest.mark.parametrize("case,want", [("replays", 100.0), ("eager", 0.0), ("no_root", None),
+                                       ("parent", None)])
+def test_fusion_graph_share_reads_the_spans_holding_a_replay(monkeypatch, case, want):
+    """100 where every smoother step replays a graph, 0 where none does,
+    None without a root or from a program that replays no smoother graphs
+    (no ``models.lio.imu_fusion.CAPTURES``, as before graphs)."""
+    if case == "parent":
+        monkeypatch.delattr(imu_fusion, "CAPTURES")
+    tr = _fusion_trace(replays=case in ("replays", "parent"), root=case != "no_root")
+    got = spec.reader("lio.fusion_graph_share")({"trace": tr})
+    assert got == want
+
+
+def test_fusion_graph_share_counts_each_span_once():
+    """Two replays in one step and none in the other read 1 of 2; a stretch
+    with a root and no ``lio.fusion`` span reads None."""
+    ev = [_ev("lvi.lidar", 0, 100), _ev("lio.fusion", 20, 30), _ev("lio.fusion", 60, 30),
+          _ev("lio.fusion_graph", 22, 5), _ev("lio.fusion_graph", 30, 5)]
+    got = spec.reader("lio.fusion_graph_share")({"trace": Trace(ev, 1.0)})
+    assert got == pytest.approx(50.0)
+    got = spec.reader("lio.fusion_graph_share")({"trace": Trace(ev[:1], 1.0)})
+    assert got is None
