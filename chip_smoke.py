@@ -128,10 +128,10 @@ Phases, one line each:
    (if not, a second run with mapRebuildEvery=1 is printed beside it and
    gated). The streams of phases 14 and 15 are raycast by worker processes
    while phases 1-12 run.
-Phases 15, 16, 17, 20, 21, 23, 24 and 25 run in eight spawned processes of
+Phases 15, 16, 17, 20, 21, 24 and 25 run in seven spawned processes of
 their own, on the card, while the main process runs phases 18, 19, 14, 22
 and 26 (every phase is host-bound and the card mostly idle; so the host
-times of phases 14-26 are taken with nine processes on the card):
+times of phases 14-26 are taken with eight processes on the card):
 
 16. bag_fixture: the bag-replay entry point (``python -m
    lvislam_tpu_torch.scripts.run_rosbag_lvi``, called in-process on the
@@ -216,18 +216,6 @@ depth overlays at that stride.
    not gated); (d) ``make_batched_loop_step`` on that
    state with keyframe 0 made 100 s older (the ICP runs): equal to four
    unbatched ``loop_closure_step`` calls.
-23. lvi_pipelined (a spawned process beside phase 14): phase 14's
-   configuration with ``pipeline_devices = (cuda:0,) * 3`` over the same
-   12 s stream, 2 s warm and 10 s timed. Gates: VIO initialized, 0
-   failures; frames estimated >= frames - 1; each stage's state on its
-   device; K1 on every processed scan (>= 1 a scan), K2-K4 not launched;
-   aligned ATE <= LVI_BAND x the worst JAX pipelined reading
-   (``utils/anchors.LVI_PIPELINED``: its own and four one-ulp runs); the
-   configuration (kernels aside) and stream hashes the anchor's; the first
-   4 s bit-identical on repeat. ``[lvi_pipelined_vs_parity]`` prints its
-   RTF and handler ms beside phase 14's (the pipelined ``image`` handler
-   covers stage T of frame k and stage E of frame k-1).
-
 24. lvi_replay (a spawned process): phase 14's configuration with the
    batched fused replay (``replay_batch = 16``, ``bench.py:539``) over the
    same 12 s stream, 2 s warm and 10 s timed: the interactive path until
@@ -2049,10 +2037,7 @@ def watch_system(sys_):
     rec = {"scans": [], "frames": []}
     counters = lambda: (hostsync.COUNT, kt.LAUNCHES, gnp.LAUNCHES, clahe.HIST_LAUNCHES,
                         clahe.APPLY_LAUNCHES)
-    # pipelined, the image handler is `_on_image_pipelined`: its frame
-    # record is the frame that stage E estimated in it (one behind)
-    image_name = "_on_image_pipelined" if sys_._pipelined else "_on_image"
-    on_lidar, on_image, lidar_seed = sys_._on_lidar, getattr(sys_, image_name), sys_._lidar_seed
+    on_lidar, on_image, lidar_seed = sys_._on_lidar, sys_._on_image, sys_._lidar_seed
     seeded = [False]
 
     # an event the batched replay staged (`replay_batch` > 1) is not a
@@ -2080,8 +2065,7 @@ def watch_system(sys_):
         seeded[0] = out is not None
         return out
 
-    sys_._on_lidar, sys_._lidar_seed = lidar, seed
-    setattr(sys_, image_name, image)
+    sys_._on_lidar, sys_._on_image, sys_._lidar_seed = lidar, image, seed
     return rec
 
 
@@ -2130,7 +2114,7 @@ def run_lvi(cfg, data, dev, warm_s: float, end_s: float):
     from lvislam_tpu_torch.utils import synthetic as syn
 
     sync = torch.cuda.synchronize if torch.device(dev).type == "cuda" else (lambda: None)
-    sys_ = LviSystem(cfg, device=None if cfg.pipeline_devices else dev)
+    sys_ = LviSystem(cfg, device=dev)
     rec = watch_system(sys_)
     syn.feed_lvi(sys_, data, 0.0, warm_s)
     sys_.run()
@@ -2987,7 +2971,7 @@ def synthetic_phase(dev):
 
 
 # ---------------------------------------------------------------------------
-# Phases 22-23: the multi-device part (slice 7)
+# Phase 22: the multi-device part (slice 7)
 # ---------------------------------------------------------------------------
 
 MD_STEADY_SCAN = 30  # phase 22's scan: phase 3's replay warmed over scans 0-29
@@ -3282,72 +3266,6 @@ def multi_device_phase(cfg, scans, dev, n_warm: int = MD_STEADY_SCAN, maps=MD_MA
         raise AssertionError("multi_device loop: the batched loop step differs from four "
                              "unbatched loop_closure_step calls")
     return k_b
-
-
-def lvi_pipelined_config(dev):
-    """Phase 14's configuration with its three stages (LIO, tracker,
-    estimator) placed on `dev`."""
-    return dataclasses.replace(lvi_parity_config(), pipeline_devices=(dev,) * 3)
-
-
-def lvi_pipelined_phase(data, dev):
-    """Phase 23: phase 14's configuration with `pipeline_devices = (dev,) *
-    3` over the 12 s parity stream, 2 s warm then 10 s timed; gated against
-    the JAX pipelined system's clean-CPU readings (`anchors.LVI_PIPELINED`);
-    the first 4 s repeated bit for bit. Returns its summary."""
-    import numpy as np
-
-    from lvislam_tpu_torch.utils import anchors
-    from lvislam_tpu_torch.utils import synthetic as syn
-
-    ref = anchors.LVI_PIPELINED
-    cfg = lvi_pipelined_config(dev)
-    cfg_cpu = anchors.config_sha256(lvi_parity_config(kernels=False))
-    seq = syn.lvi_sequence_sha256(data)
-    if cfg_cpu != ref["config_sha256"] or seq != ref["stream_sha256"]:
-        raise AssertionError(f"lvi_pipelined: config {cfg_cpu} / stream {seq} are not the "
-                             f"anchor's ({ref['config_sha256']} / {ref['stream_sha256']})")
-    traj = syn.figure8_trajectory(scale=3.0, period=30.0)
-    sys_, rec, wall = run_lvi(cfg, data, dev, LVI_WARM_S, LVI_PARITY_S)
-    r = lvi_summary(sys_, rec, traj, LVI_WARM_S)
-    worst = max(ref["ate_m"], *ref["ate_one_ulp_m"].values())
-    limit = LVI_BAND * worst
-    n_frames = sum(1 for t, _ in data["imgs"] if t < LVI_PARITY_S)
-    placed = {name: x.device for name, x in (
-        ("lio", sys_.lio.state.x6), ("fusion", sys_.fusion.pos), ("tracker", sys_.tracker.pts),
-        ("depth_ring", sys_.depth_clouds), ("vio", sys_.vio.ws.Ps), ("loop_db", sys_.loop_db.bags))}
-    want = {"lio": sys_._dev_lio, "fusion": sys_._dev_lio, "tracker": sys_._dev_trk,
-            "depth_ring": sys_._dev_trk, "vio": sys_._dev_vio, "loop_db": sys_._dev_vio}
-    log("lvi_pipelined", seconds=LVI_PARITY_S, timed_s=LVI_PARITY_S - LVI_WARM_S,
-        devices=",".join(map(str, cfg.pipeline_devices)),
-        rtf=round((LVI_PARITY_S - LVI_WARM_S) / wall, 4), wall_s=round(wall, 2),
-        frames=n_frames, ate_limit_m=round(limit, 5), jax_ate_m=round(ref["ate_m"], 5),
-        jax_worst_ate_m=round(worst, 5), jax_init_frame=ref["init_frame"],
-        jax_vio_frames=ref["vio_frames"], config_sha256=anchors.config_sha256(
-            dataclasses.replace(cfg, pipeline_devices=None)),
-        cpu_config_sha256=cfg_cpu, stream_sha256=seq,
-        placement=",".join(f"{k}:{v}" for k, v in placed.items()), **fmt_run(r))
-    if not (r["init_frame"] and r["failure_count"] == 0 and r["vins_odom"]):
-        raise AssertionError(f"lvi_pipelined: VIO init frame {r['init_frame']}, "
-                             f"failures {r['failure_count']}, vins_odom {r['vins_odom']}")
-    if r["vio_frames"] < n_frames - 1:
-        raise AssertionError(f"lvi_pipelined: {r['vio_frames']} frames estimated of {n_frames}")
-    if any(placed[k] != want[k] for k in placed):
-        raise AssertionError(f"lvi_pipelined: placement {placed}")
-    if not (r["K1_per_scan"] >= 1.0 and r["launches"]["K2"] == r["launches"]["K3"] ==
-            r["launches"]["K4"] == 0):
-        raise AssertionError(f"lvi_pipelined: launches {r['launches']} "
-                             f"(K1 {r['K1_per_scan']:.2f} a processed scan)")
-    if not r["ate_m"] <= limit:
-        raise AssertionError(f"lvi_pipelined: ATE {r['ate_m']:.4f} m over {limit:.4f} m")
-    sys2, _, _ = run_lvi(cfg, data, dev, LVI_WARM_S, LVI_REPEAT_S)
-    rows = lambda s: np.stack([np.r_[t, x6] for t, x6 in s.trajectory if t < LVI_REPEAT_S])
-    a, b = rows(sys_), rows(sys2)
-    log("lvi_pipelined_determinism", seconds=LVI_REPEAT_S, rows=len(b), sha256=sha256(b),
-        identical=bool(np.array_equal(a, b)))
-    if not np.array_equal(a, b):
-        raise AssertionError("lvi_pipelined determinism: the first 4 s differ")
-    return dict(r, rtf=(LVI_PARITY_S - LVI_WARM_S) / wall)
 
 
 def watch_replay(sys_):
@@ -3660,14 +3578,14 @@ def main() -> int:
 
 
 def phase_pool():
-    """Eight spawned processes (`phase_worker_init`) for phases 15, 16, 17,
-    20, 21, 23, 24 and 25, which run on the card while the main process runs
+    """Seven spawned processes (`phase_worker_init`) for phases 15, 16, 17,
+    20, 21, 24 and 25, which run on the card while the main process runs
     18, 19, 14, 22 and 26: every phase is host-bound and the card is mostly
     idle, so the script's time stays under its limit on a slow host."""
     import multiprocessing
     from concurrent.futures import ProcessPoolExecutor
 
-    return ProcessPoolExecutor(8, mp_context=multiprocessing.get_context("spawn"),
+    return ProcessPoolExecutor(7, mp_context=multiprocessing.get_context("spawn"),
                                initializer=phase_worker_init, initargs=(T_START,))
 
 
@@ -3864,8 +3782,8 @@ def run_phases(pool, phases, dev) -> int:
     # ---- 13. the visual loop detector alone ----
     loop_ms = loop_scene_phase(syn.loop_scene(), dev)
 
-    # ---- 15, 16, 17, 20, 21, 23: config 5 at the shipped scale, the
-    # bag-replay, EuRoC and synthetic entry points and the pipelined system,
+    # ---- 15, 16, 17, 20, 21, 24, 25: config 5 at the shipped scale, the
+    # bag-replay, EuRoC and synthetic entry points and the batched replay,
     # each in a process of its own, on the card beside phases 14 and 22 ----
     full_data = streams["full"].get()
     log("lvi_full_stream", wait_seconds=round(streams["full"].waited_s, 1))
@@ -3875,7 +3793,6 @@ def run_phases(pool, phases, dev) -> int:
             phases.submit(bag_shipped_phase, shipped_inputs, dev),
             phases.submit(euroc_phase, stream[1:], dev, vio_full_outcomes[0]),
             phases.submit(synthetic_phase, dev),
-            phases.submit(lvi_pipelined_phase, streams["parity"].get(), dev),
             phases.submit(lvi_replay_phase, streams["parity"].get(), dev),
             phases.submit(lvi_replay_full_phase, full_data, dev)]
 
@@ -3895,14 +3812,8 @@ def run_phases(pool, phases, dev) -> int:
     tools_k = tools_phase(scans, dev)
 
     (full, full_gated, full_rows), (_, bag_fix), (_, bag_ship, ship_rows), euroc_k, \
-        synthetic_k, pipe, rep24, rep25 = [job.result() for job in jobs]
+        synthetic_k, rep24, rep25 = [job.result() for job in jobs]
     compare_with_full(ship_rows, full_rows)
-    # phase 23 beside phase 14 (both beside the workers; the pipelined
-    # `image` handler covers stage T of frame k and stage E of frame k-1)
-    log("lvi_pipelined_vs_parity", **{f"{k}_{name}": round(r[k], 4) for name, r in
-                                      (("pipelined", pipe), ("parity", par))
-                                      for k in ("rtf", "lidar_ms_mean", "image_ms_mean",
-                                                "ate_m")})
     # phases 24 and 25 beside 14 and 15 (each in its own process, at other
     # times): the replay's RTF, handler ms and host syncs an event
     for name, a, b in (("lvi_replay_vs_parity", rep24, par), ("lvi_replay_full_vs_full", rep25, full)):
@@ -3922,7 +3833,6 @@ def run_phases(pool, phases, dev) -> int:
         by_path[key]["bag_fixture"] = bag_fix[key]
         by_path[key]["bag_shipped"] = bag_ship[key]
         by_path[key]["synthetic_entry"] = synthetic_k[key]
-        by_path[key]["lvi_pipelined"] = pipe["launches"][key]
         by_path[key]["lvi_replay"] = rep24["launches"][key]
         by_path[key]["lvi_replay_full"] = rep25["launches"][key]
         if key in batched_k:

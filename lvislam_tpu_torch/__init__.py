@@ -7,11 +7,12 @@ tensors, the device taken from the inputs (or passed explicitly where a state
 is created), ``NamedTuple`` states in place of pytrees, and Python loops and
 branches where JAX has ``lax.while_loop`` / ``lax.cond``.
 
-Everything of the JAX package is ported: the LiDAR-inertial per-scan step
+The JAX package is ported, but for the fused system's placement of its
+stages on three devices: the LiDAR-inertial per-scan step
 (``models.lio.pipeline``), the visual front end
 (``models.vio.feature_tracker``), the IMU side, the VIO estimator, the fused
-system (``models.pipeline.LviSystem``, pipelined over three devices too, and
-its batched replay, ``models.replay``), the entry points and host tools, the
+system on one device (``models.pipeline.LviSystem``, and its batched
+replay, ``models.replay``), the entry points and host tools, the
 multi-device part (``parallel``), and the repo-root tools (``scripts.bench``,
 ``scripts.profile``, ``scripts.train_vocab``).
 The kernels are hand-written CUDA C++ for Hopper (``csrc/``), built with

@@ -18,13 +18,13 @@ last line of the output is the whole record.
 - ``lio`` (the headline, ``bench.py:989-1043``): ``full_width_config`` (K1
   and K2 on) at ``upload_batch = 8`` over the bench's 91 scans: 11 warm, then
   the faster of two segments of 40. Keys ``metric`` = lio_real_time_factor,
-  ``value``, ``unit``, ``vs_baseline``, ``per_scan_ms``, ``ate_rmse_m``
-  (aligned, over every scan), ``scans``, ``backend``, ``ate_cpu_ref_m``,
-  ``ate_vs_cpu_ref_pct``. **K2 is on**, where ``bench.py:209`` turns
-  ``pallas_gn`` off: there its polynomial ``acos`` flipped residual gates on
-  the TPU and cost +12% ATE; the port's K2 is bit-equal to its plain
-  version, and without it the port's GN partials run as separate torch ops
-  without FMA contraction, which read +8.31% ATE.
+  ``value``, ``unit``, ``per_scan_ms``, ``ate_rmse_m`` (aligned, over every
+  scan), ``scans``, ``backend``, ``ate_cpu_ref_m``, ``ate_vs_cpu_ref_pct``.
+  **K2 is on**, where ``bench.py:209`` turns ``pallas_gn`` off: there its
+  polynomial ``acos`` flipped residual gates on the TPU and cost +12% ATE;
+  the port's K2 is bit-equal to its plain version, and without it the
+  port's GN partials run as separate torch ops without FMA contraction,
+  which read +8.31% ATE.
 - ``lvi``: config 5 at the parity scale with ``replay_batch = 16``
   (``lvi_parity_config``, phase 24's configuration), 2 s warm and 10 s
   timed: ``lvi_rtf_measured``, ``lvi_ate_rmse_m``, ``lvi_vio_initialized``,
@@ -44,7 +44,6 @@ last line of the output is the whole record.
   ``vio_euroc_failures``, ``vio_euroc_ate_m`` (the TUM rows against the
   truth at their stamps plus the first message's, which the script rebases
   to 0; null under 10 rows, where ``bench.py`` leaves the key out).
-- the derived ``lvi_rtf_bound`` and ``lvi_rtf_bound_pipelined``.
 - ``full_scale``: ``lvi_full_config`` with ``replay_batch = 16`` over 7 s
   (2 s warm, 5 s timed; K1-K4): ``lvi_full_scale_rtf``,
   ``lvi_full_scale_ate_m``, ``lvi_full_scale_vio_init``,
@@ -101,7 +100,6 @@ SECTIONS = ("lio", "lvi", "imu", "vio", "euroc", "full_scale", "loop")
 # a section's expected wall on the card, s (`bench.py:1088-1123`): it runs
 # only while the budget has that much left
 SECTION_S = {"lvi": 300, "imu": 60, "vio": 120, "euroc": 240, "full_scale": 420, "loop": 360}
-BASELINE_RTF = 10.0  # BASELINE.json's north star: vs_baseline = value / 10
 BA_BUDGET_ITERS, BA_BUDGET_S = 10, 0.035  # the reference estimator: 10 iterations / 35 ms
 WARM_S = 2.0  # the fused sections' warm span
 FULL_SCALE_S = 7.0  # the shipped-scale stream (`bench.py:644`)
@@ -357,8 +355,8 @@ def lio_section(out: dict, scans, dev: torch.device, n_warm: int = 11, seg_len: 
     syncs, launches = per(box, seg_len * n_segs)
     out.update({
         "metric": "lio_real_time_factor", "value": round(rtf, 2), "unit": "x_realtime",
-        "vs_baseline": round(rtf / BASELINE_RTF, 3), "per_scan_ms": round(per_scan * 1e3, 2),
-        "ate_rmse_m": round(ate, 4), "scans": seg_len * n_segs, "backend": dev.type,
+        "per_scan_ms": round(per_scan * 1e3, 2), "ate_rmse_m": round(ate, 4),
+        "scans": seg_len * n_segs, "backend": dev.type,
         "ate_cpu_ref_m": ref, "ate_vs_cpu_ref_pct": pct(ate, ref),
         "ate_cpu_ref_anchor": "bench_anchors.json:ate_cpu_ref_m",
         "per_scan_host_syncs": syncs, "per_scan_launches": launches,
@@ -504,17 +502,6 @@ def euroc_section(out: dict, stream, dev: torch.device, seconds: float = 5.0):
             align=True)), 4)
 
 
-def bounds_section(out: dict):
-    """`bench.py:1093-1111`: the sequential single-card bound (a scan, a
-    tracker frame and a BA solve a 100 ms period) and the pipelined bound
-    (the slowest of the three stages)."""
-    lvi_ms = out["per_scan_ms"] + out["tracker_step_ms"] + out["vio_ba_solve_ms"]
-    out["lvi_rtf_bound"] = round((1e3 / bi.RATE) / lvi_ms, 3)
-    stage_ms = max(out["per_scan_ms"], out["tracker_step_ms"] + out["depth_reg_ms"],
-                   out["vio_ba_solve_ms"])
-    out["lvi_rtf_bound_pipelined"] = round((1e3 / bi.RATE) / stage_ms, 3)
-
-
 def full_scale_section(out: dict, data: dict, dev: torch.device, seconds: float = FULL_SCALE_S):
     """Config 5 at the shipped scale (`bench.py:_lvi_full_scale_section`):
     `lvi_full_config` at `replay_batch = 16`, 2 s warm, the rest timed."""
@@ -602,10 +589,6 @@ def execute(run: Run) -> dict:
     for name, fn in steps:
         if name in want:
             section(run, name, fn)
-        if name == "euroc" and all(k in out for k in ("per_scan_ms", "tracker_step_ms",
-                                                       "vio_ba_solve_ms", "depth_reg_ms")):
-            bounds_section(out)
-            run.emit()
     return out
 
 

@@ -6,8 +6,8 @@ tree whose leaves go through ``np.asarray``), ``LioCaps``, ``LioParams``,
 ``CameraIntrinsics``, ``TrackerParams``, ``TrackerState``, and the IMU and
 VIO side's ``FusionState``, ``PreintState``, ``WindowState``, ``Prior``,
 ``FeatureTable``, ``VioState``, the loop detector's ``LoopCaps`` and
-``LoopDB``, the fused system's ``LviConfig`` and ``LviSystem`` (the
-pipelined one too, and one whose batched replay is active), the replay's
+``LoopDB``, the fused system's ``LviConfig`` and ``LviSystem`` (one whose
+batched replay is active too), the replay's
 ``ReplayStatics`` and ``ReplayCarry``, batched LIO states (a leading B
 axis, on one device or over a mesh's ``batch`` slots), the
 calibration tool's ``CalibResult``, the ``PoseGraph`` that
@@ -214,21 +214,20 @@ def message_from_jax(jmsg, device=None):
                   for f in dataclasses.fields(cls)})
 
 
-def lvi_config_from_jax(jcfg, pipeline_devices=None) -> lvi.LviConfig:
+def lvi_config_from_jax(jcfg) -> lvi.LviConfig:
     """A JAX ``LviConfig`` -> the port's, every nested configuration
-    converted (`replay_batch` and the other fields as they are). The JAX
-    `pipeline_devices` are JAX devices: a pipelined configuration needs the
-    port's three in `pipeline_devices`."""
-    if (jcfg.pipeline_devices is None) != (pipeline_devices is None):
-        raise ValueError("pipeline_devices: give the port's three devices exactly when "
-                         "the JAX configuration is pipelined")
+    converted (`replay_batch` and the other fields as they are). A pipelined
+    JAX configuration (`pipeline_devices` set) has no counterpart: the port
+    runs on one device."""
+    if jcfg.pipeline_devices is not None:
+        raise ValueError("pipeline_devices: the JAX configuration is pipelined; the port "
+                         "runs the fused system on one device")
     return _dc(
         lvi.LviConfig, jcfg, lio=config_from_jax(jcfg.lio),
         fusion=fusion_params_from_jax(jcfg.fusion), vio_caps=vio_caps_from_jax(jcfg.vio_caps),
         vio_params=vio_params_from_jax(jcfg.vio_params), ba=ba_config_from_jax(jcfg.ba),
         tracker=tracker_params_from_jax(jcfg.tracker), camera=camera_from_jax(jcfg.camera),
         loop_caps=loop_caps_from_jax(jcfg.loop_caps),
-        pipeline_devices=pipeline_devices and tuple(pipeline_devices),
     )
 
 
@@ -259,36 +258,25 @@ def replay_carry_from_jax(jcarry, device=None) -> rp.ReplayCarry:
     )
 
 
-def lvi_system_from_jax(jsys, device=None, sampler=None,
-                        pipeline_devices=None) -> lvi.LviSystem:
-    """A JAX ``LviSystem`` (interactive or pipelined path, or with its
-    batched replay active and drained: no batch in flight) -> the port's on
-    `device` or, pipelined, on the port's `pipeline_devices`, carrying the
-    device state (LIO map, fusion, tracker, VIO, loop database, depth ring,
-    each on its stage's device; a replay's carry, its rows and statics), the
-    pipelined stage-T output awaiting stage E, and the host state (IMU
-    buffers, the fused odometry stream, the VIS odometry, the last fused
+def lvi_system_from_jax(jsys, device=None, sampler=None) -> lvi.LviSystem:
+    """A JAX ``LviSystem`` (interactive path, or with its batched replay
+    active and drained: no batch in flight) -> the port's on `device`,
+    carrying the device state (LIO map, fusion, tracker, VIO, loop database,
+    depth ring; a replay's carry, its rows and statics) and the host state
+    (IMU buffers, the fused odometry stream, the VIS odometry, the last fused
     state, frame times, ring stamps and slot, td, the flags and counters)."""
     import copy
 
-    sys_ = lvi.LviSystem(lvi_config_from_jax(jsys.cfg, pipeline_devices),
-                         device=device, sampler=sampler)
-    d_lio, d_trk, d_vio = sys_._dev_lio, sys_._dev_trk, sys_._dev_vio
-    sys_.lio.state = state_from_jax(jsys.lio.state, d_lio)
+    sys_ = lvi.LviSystem(lvi_config_from_jax(jsys.cfg), device=device, sampler=sampler)
+    dev = sys_.device
+    sys_.lio.state = state_from_jax(jsys.lio.state, dev)
     sys_.lio.scan_counter = jsys.lio.scan_counter
-    sys_.fusion = fusion_state_from_jax(jsys.fusion, d_lio)
-    sys_.tracker = tracker_state_from_jax(jsys.tracker, d_trk)
-    sys_.vio = vio_state_from_jax(jsys.vio, d_vio)
-    sys_.loop_db = loop_db_from_jax(jsys.loop_db, d_vio)
-    sys_.depth_clouds = _tensor(jsys.depth_clouds, d_trk)
-    sys_.depth_valid = _tensor(jsys.depth_valid, d_trk)
-    pend = getattr(jsys, "_pending_track", None)
-    if pend is not None:
-        sys_._pending_track = dict(
-            stamp=pend["stamp"], img=np.array(pend["img"], copy=True),
-            tout=_tree(ft.TrackerOutput, pend["tout"], d_trk),
-            depth=_tensor(pend["depth"], d_trk), rt=_tensor(pend["rt"], d_trk))
-    sys_._last_est_time = getattr(jsys, "_last_est_time", -1.0)
+    sys_.fusion = fusion_state_from_jax(jsys.fusion, dev)
+    sys_.tracker = tracker_state_from_jax(jsys.tracker, dev)
+    sys_.vio = vio_state_from_jax(jsys.vio, dev)
+    sys_.loop_db = loop_db_from_jax(jsys.loop_db, dev)
+    sys_.depth_clouds = _tensor(jsys.depth_clouds, dev)
+    sys_.depth_valid = _tensor(jsys.depth_valid, dev)
     host = ("imu_times", "imu_gyro", "imu_acc", "imu_rpy", "last_image_time",
             "last_lidar_time", "_last_map_time", "lidar_counter", "depth_stamps",
             "depth_slot", "_td", "_vio_initialized", "vins_odom", "last_gps", "lio_odoms",
@@ -302,14 +290,14 @@ def lvi_system_from_jax(jsys, device=None, sampler=None,
         sys_.imu_gyro_l = copy.deepcopy(jsys.imu_gyro_l)
         sys_.imu_acc_l = copy.deepcopy(jsys.imu_acc_l)
     for slot, img8 in getattr(jsys, "_dbg_kf_imgs", {}).items():
-        sys_._debug_keep(_tensor(img8, d_vio), slot)
+        sys_._debug_keep(_tensor(img8, dev), slot)
     sys_._vio_frame_count = int(np.asarray(jsys.vio.frame_count))
     sys_._fusion_initialized = bool(np.asarray(jsys.fusion.initialized))
     if getattr(jsys, "_replay_active", False):
         # a drained replay: the carry (the device state of record), its
         # statics, the staged rows and their host meta
         sys_._replay_active = True
-        sys_._carry = replay_carry_from_jax(jsys._carry, d_lio)
+        sys_._carry = replay_carry_from_jax(jsys._carry, dev)
         sys_._replay_statics = replay_statics_from_jax(jsys._replay_statics)
         sys_._replay_last_frame_t = jsys._replay_last_frame_t
         sys_._ev_rows = [np.array(r, copy=True) for r in jsys._ev_rows]

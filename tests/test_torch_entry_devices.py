@@ -2,8 +2,6 @@
 with no device given they take ``cuda``, and without a CUDA device that
 raises instead of falling back to the CPU. ``device="cpu"`` works."""
 
-import dataclasses
-
 import pytest
 import torch
 
@@ -54,8 +52,6 @@ BUILDERS = {
     "navstate_identity": lambda **kw: preintegration.navstate_identity(**kw).quat,
     "consistent_window": lambda **kw: synthetic.consistent_window(2, 4, **kw)[2].Ps,
     "LviSystem": lambda **kw: LviSystem(LVI_CFG, **kw).depth_clouds,
-    "LviSystem(pipeline_devices)": lambda device=None: LviSystem(dataclasses.replace(
-        LVI_CFG, pipeline_devices=(device,) * 3)).vio.ws.Ps,
     "make_mesh": lambda device=None: torch.empty(0, device=mesh.make_mesh(
         devices=None if device is None else [device] * 2).devices[0, 0]),
     "batched_lio_init": lambda **kw: batch_replay.batched_lio_init(CAPS, 2, **kw).x6,

@@ -372,27 +372,44 @@ def test_loop_detect_points_and_keyframe_insert(jax_run, monkeypatch):
 
 
 def test_unported_options_raise(tmp_path):
-    """Both options that once raised are ported: `pipeline_devices` builds
-    and places each stage's state on its device (the image handler becomes
-    the pipelined one), and `debug_dir` builds (`utils/debugviz.py`). What
-    still raises: `device` beside `pipeline_devices`, and an unknown device
-    name."""
+    """`pipeline_devices`, the JAX system's placement of its stages on three
+    devices, is refused: the port runs the fused system on one device.
+    `debug_dir` builds (`utils/debugviz.py`)."""
     from lvislam_tpu_torch.models.pipeline import LviConfig, LviSystem
 
     with pytest.raises(ValueError, match="pipeline_devices"):
         LviSystem(LviConfig(pipeline_devices=("cpu",) * 3, vocab_path=None), device="cpu")
-    with pytest.raises(RuntimeError):
-        LviSystem(LviConfig(pipeline_devices=("a", "b", "c"), vocab_path=None))
-    sys_ = LviSystem(LviConfig(pipeline_devices=("cpu", torch.device("cpu"), "cpu"),
-                               vocab_path=None))
-    assert sys_._pipelined and sys_._pending_track is None
-    cpu = torch.device("cpu")
-    assert (sys_._dev_lio, sys_._dev_trk, sys_._dev_vio) == (cpu, cpu, cpu)
-    assert sys_.lio.state.x6.device == sys_.fusion.pos.device == sys_._dev_lio
-    assert sys_.tracker.pts.device == sys_.depth_clouds.device == sys_._dev_trk
-    assert sys_.vio.ws.Ps.device == sys_.loop_db.bags.device == sys_._dev_vio
     sys_ = LviSystem(LviConfig(debug_dir=str(tmp_path / "dbg"), vocab_path=None), device="cpu")
-    assert sys_.cfg.debug_dir and sys_._dbg_kf_imgs is None and not sys_._pipelined
+    assert sys_.cfg.debug_dir and sys_._dbg_kf_imgs is None
+
+
+@pytest.mark.parametrize("entry", ["LviSystem", "lvi_config_from_jax", "lvi_system_from_jax"])
+def test_pipelined_configuration_refused(entry):
+    """A configuration with `pipeline_devices` set is refused with a
+    ValueError naming the field at each entry it can arrive through: the
+    port's `LviSystem` (before it places anything: no device is given, and
+    none is resolved), and the conversions of a pipelined JAX configuration
+    and of a pipelined JAX system, its stages on three of the virtual CPU
+    devices of `tests/conftest.py`."""
+    from lvislam_tpu.models import pipeline as jlvi
+    from lvislam_tpu.models.loop import loop_detector as jld
+    from lvislam_tpu.models.vio import feature_manager as jfm
+    from lvislam_tpu_torch.models.pipeline import LviConfig, LviSystem
+
+    devs = tuple(jax.devices("cpu")[:3])
+    assert len(set(devs)) == 3
+    small = dict(vio_caps=jfm.VioCaps(window=3, max_features=16, imu_buf=8, frame_features=8),
+                 loop_caps=jld.LoopCaps(max_keyframes=4, extra_points=8, vocab_words=16),
+                 vocab_path=None)
+    with pytest.raises(ValueError, match="pipeline_devices"):
+        if entry == "LviSystem":
+            LviSystem(LviConfig(pipeline_devices=("cpu",) * 3, vocab_path=None))
+        elif entry == "lvi_config_from_jax":
+            convert.lvi_config_from_jax(jlvi.LviConfig(pipeline_devices=devs, **small))
+        else:
+            jsys = jlvi.LviSystem(jlvi.LviConfig(pipeline_devices=devs, **small))
+            assert jsys.vio.ws.Ps.devices() == {devs[2]}
+            convert.lvi_system_from_jax(jsys, device="cpu")
 
 
 def test_debug_dir_hooks_from_carried_state(parity_data, jax_run, tmp_path):

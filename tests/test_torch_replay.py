@@ -3,8 +3,8 @@
 the JAX package's: the event packers byte for byte, the scan and frame
 events from one carried JAX ``ReplayCarry``, a JAX ``LviSystem`` whose
 replay is active carried into the port and fed on, the port's own paths
-(partial-batch flush, a failing batch, the hand-back on a VIO failure,
-``pipeline_devices`` beside ``replay_batch``), and (slow) the JAX replay's
+(partial-batch flush, a failing batch, the hand-back on a VIO failure),
+and (slow) the JAX replay's
 readings over the 12 s parity sequence, ``anchors.LVI_REPLAY``."""
 
 import copy
@@ -540,23 +540,3 @@ def test_vio_failure_hands_back_to_interactive(parity_data, jax_replay_fed, monk
     assert port._vio_initialized  # the estimator is up: the replay can resume
     assert port._maybe_activate_replay() and port._carry is not None
 
-
-def test_pipeline_devices_beside_replay_batch(parity_data):
-    """`pipeline_devices` with `replay_batch` > 1 runs the pipelined path:
-    with the VIO up, a frame goes to stage T and nothing is staged."""
-    from lvislam_tpu_torch.models.pipeline import LviSystem
-
-    cfg = dataclasses.replace(convert.lvi_config_from_jax(jax_replay_system(BATCH).cfg),
-                              pipeline_devices=("cpu",) * 3)
-    assert cfg.replay_batch == BATCH
-    sys_ = LviSystem(cfg)
-    sys_._vio_initialized = True
-    sys_.vins_odom = dict(stamp=0.0, trans=np.zeros(3, np.float32),
-                          quat=np.array([1, 0, 0, 0], np.float32), vel=np.zeros(3, np.float32),
-                          ba=np.zeros(3, np.float32), bg=np.zeros(3, np.float32), reset_id=0)
-    assert not sys_._maybe_activate_replay()
-    t, img = parity_data["imgs"][0]
-    sys_.feed_image(t, img)
-    sys_.bus.run()
-    assert sys_._pending_track["stamp"] == t
-    assert not sys_._replay_active and not sys_._ev_rows and sys_._carry is None
